@@ -1,0 +1,4 @@
+from .convert import load_weights, random_weights, read_flax_npz, state_dict_from_flax
+from .pmf import ASPP, PMFNet, ResidualBasedFusionBlock, RGBDecoder, SalsaNextFusion
+from .resnet import ResNetEncoder
+from .salsanext import ResBlock, ResContextBlock, SalsaNext, UpBlock

@@ -1,0 +1,73 @@
+"""Point-cloud → camera-image projection (counterpart of
+`pmf_tpu/ops/projection.py`).
+
+The functions take fixed-size padded point buffers with a validity mask and
+return per-point pixel coordinates plus a keep mask; a leading batch
+dimension is allowed ([..., N, 3] points with [..., 3, 4] matrices and
+[...] image sizes).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def read_kitti_calib(calib_path: str) -> np.ndarray:
+    """Parse a KITTI calib.txt and return the 3x4 camera projection P2 @ Tr."""
+    calib = {}
+    with open(calib_path) as f:
+        for line in f:
+            if line == "\n":
+                break
+            key, value = line.split(":", 1)
+            calib[key] = np.array([float(x) for x in value.split()])
+    P2 = calib["P2"].reshape(3, 4)
+    Tr = np.identity(4)
+    Tr[:3, :4] = calib["Tr"].reshape(3, 4)
+    return (P2 @ Tr).astype(np.float32)
+
+
+def _project(points: torch.Tensor, proj_matrix: torch.Tensor) -> torch.Tensor:
+    # an elementwise product summed in x, y, z order plus the translation
+    # row: the reference's order, so pixel indices match it bit for bit
+    Pt = proj_matrix.transpose(-1, -2)[..., None, :, :]       # [..., 1, 4, 3]
+    return (points[..., :3, None] * Pt[..., :3, :]).sum(-2) + Pt[..., 3, :]
+
+
+def _per_scan(size):
+    # a [B] tensor of image sizes broadcasts against [B, N] coordinates
+    return size[..., None] if torch.is_tensor(size) and size.dim() else size
+
+
+def perspective_project(points, proj_matrix, img_h, img_w, valid=None):
+    """Keep points in front of the vehicle (x > 0.5), landing strictly
+    inside the image, and valid. Returns (rows, cols) float32 and keep."""
+    img_h, img_w = _per_scan(img_h), _per_scan(img_w)
+    keep = points[..., 0] > 0.5
+    if valid is not None:
+        keep = keep & valid
+    uvw = _project(points, proj_matrix)
+    w = torch.where(uvw[..., 2].abs() > 1e-9, uvw[..., 2], 1e-9)
+    u = uvw[..., 0] / w
+    v = uvw[..., 1] / w
+    keep = keep & (u > 0) & (u < img_w) & (v > 0) & (v < img_h)
+    return v, u, keep
+
+
+def perspective_project_cam(points, proj_matrix, img_h, img_w,
+                            min_depth: float = 1.0, margin: float = 1.0,
+                            valid=None):
+    """Camera-frame depth test (w > min_depth) and a `margin`-pixel image
+    border (nuScenes style). Returns (rows, cols, keep)."""
+    img_h, img_w = _per_scan(img_h), _per_scan(img_w)
+    uvw = _project(points, proj_matrix)
+    w = uvw[..., 2]
+    keep = w > min_depth
+    if valid is not None:
+        keep = keep & valid
+    safe_w = torch.where(w.abs() > 1e-9, w, 1e-9)
+    u = uvw[..., 0] / safe_w
+    v = uvw[..., 1] / safe_w
+    keep = keep & (u > margin) & (u < img_w - margin) & (v > margin) & \
+        (v < img_h - margin)
+    return v, u, keep
