@@ -7,8 +7,13 @@ Phases, each of which ends the run with a non-zero exit on failure:
   2. build: compile the CUDA kernels from pmf_tpu_torch/csrc for sm_90a;
   3. kernels: each kernel on the eval path's own inputs (batch 8 of
      32768-point synthetic scans, 384x1232, 6 features), with forced ties,
-     held to its plain PyTorch version exactly; times of the kernel, the
-     plain version and one PyTorch library call for the same function;
+     held to its plain PyTorch version exactly, and on the cases off that
+     path: K2 with 64-bit keys (1 scan of 131072 points), at the key-width
+     boundary (65535 and 65536 points), both kernels with every point on 64
+     pixels and with every point dropped. Then times: the kernel
+     host-inclusive (`ms`) and on the device alone (`device_ms`, a CUDA
+     graph of 20 calls), its plain version and one PyTorch library call for
+     the same function; and each kernel's per-pass split (torch.profiler);
   4. reference: the port in float32 on the card against the port on the CPU
      (which the tests hold to pmf_tpu) at a small size, with random weights
      under which the probabilities depend on the input;
@@ -24,6 +29,7 @@ The line before the last is {"kernels": [...]}; the last is
 prints neither.
 """
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -43,9 +49,11 @@ def fail(msg: str):
 
 
 def time_ms(fn, iters: int = 20, repeats: int = 5, warmup: int = 3) -> float:
-    """Device time of one call of `fn`: CUDA events around `iters` calls in a
-    row, divided by the count (a call timed alone on an idle card would
-    also count the host's time to enqueue it); the median of `repeats`."""
+    """Host-inclusive time of one call of `fn`: CUDA events around `iters`
+    calls in a row, divided by the count (a call timed alone on an idle card
+    would also count the host's time to enqueue it); the median of
+    `repeats`. Where the host's work per call exceeds the device's, this is
+    the host's rate."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -60,6 +68,75 @@ def time_ms(fn, iters: int = 20, repeats: int = 5, warmup: int = 3) -> float:
         end.synchronize()
         runs.append(start.elapsed_time(end) / iters)
     return statistics.median(runs)
+
+
+def device_ms(fn, iters: int = 20, repeats: int = 5) -> float:
+    """Device time of one call of `fn`: `iters` calls captured into one CUDA
+    graph, replayed between CUDA events, divided by the count; the median of
+    `repeats` replays. The host's per-call work ran once, at capture."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        runs.append(start.elapsed_time(end) / iters)
+    return statistics.median(runs)
+
+
+def short_name(key: str) -> str:
+    key = re.sub(r"^void |\(anonymous namespace\)::", "", key)
+    return re.match(r"[^(]*", key).group(0).strip()[:70]
+
+
+def trace(name: str, fn, smi: str, iters: int = 20) -> None:
+    """Print the per-pass split of `iters` calls of `fn`: the host's time per
+    call (perf_counter around the calls, before the device is waited for),
+    each device pass's time per call and the host's busiest operations
+    (torch.profiler, CPU and CUDA activities)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_us = (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    dev = sorted(((e.self_device_time_total / iters, e.count / iters, short_name(e.key))
+                  for e in events if e.device_type == DeviceType.CUDA), reverse=True)
+    cpu = sorted(((e.self_cpu_time_total / iters, short_name(e.key))
+                  for e in events if e.device_type == DeviceType.CPU
+                  and "synchronize" not in e.key.lower()
+                  and not e.key.startswith("Activity Buffer")), reverse=True)[:6]
+    total = sum(t for t, _, _ in dev)
+    print(f"[trace] {name}: host {host_us:.2f} us/call (no profiler); device "
+          f"{total:.2f} us/call in {len(dev)} passes on {smi}"
+          + ("" if dev else " (the trace holds no device time)"))
+    for t, n, k in dev:
+        print(f"[trace]   device {t:9.3f} us/call  x{n:g}  {k}")
+    for t, k in cpu:
+        print(f"[trace]   host   {t:9.3f} us/call (profiled)  {k}")
 
 
 def bound_ms(n_bytes: float, n_ops: float):
@@ -84,27 +161,91 @@ def force_ties(rows, cols, depth, keep, seed: int):
     return rows, cols, depth, keep
 
 
-def check_kernels(dev, cfg, batch):
+def random_points(dev, seed: int, b: int, n: int, pixels: int = 0):
+    """(rows, cols, depth, keep, values [b, n, F]) on the card: points over
+    the image with forced ties (as `force_ties`), depths on quantum edges
+    and below 0; or, with `pixels`, every point on a square of that many
+    pixels, at 8 depth quanta (heavy contention, ties at equal dq)."""
+    rng = np.random.default_rng(seed)
+    if pixels:
+        side = int(round(pixels ** 0.5))
+        rows = H // 2 + rng.integers(0, side, (b, n))
+        cols = W // 2 + rng.integers(0, side, (b, n))
+        depth = rng.integers(64, 72, (b, n)) / 64 + rng.uniform(0, 1 / 64, (b, n))
+    else:
+        rows = rng.integers(-2, H + 2, (b, n))
+        cols = rng.integers(-2, W + 2, (b, n))
+        depth = rng.uniform(0.5, 80, (b, n))
+        depth[:, 200:260] = np.floor(depth[:, 200:260] * 64) / 64
+        depth[:, 260:270] = -1.0
+    keep = rng.random((b, n)) > 0.1
+    values = rng.normal(size=(b, n, F)).astype(np.float32)
+    rows, cols, depth, keep, values = (
+        torch.from_numpy(a).to(dev) for a in (rows.astype(np.int32), cols.astype(np.int32),
+                                              depth.astype(np.float32), keep, values))
+    if not pixels:
+        rows, cols, depth, keep = force_ties(rows, cols, depth, keep, seed)
+    return rows, cols, depth, keep, values
+
+
+def hold_rasterize(label: str, rows, cols, depth, keep, values):
+    """K2 on these points, held to its plain version bit for bit; returns
+    the max abs error."""
+    from pmf_tpu_torch.ops import rasterize
+
+    args = (rows, cols, depth, keep, values, H, W)
+    canvas, mask = rasterize.rasterize_zbuffer(*args)
+    torch.cuda.synchronize()
+    want_c, want_m = rasterize.rasterize_zbuffer_plain(*args)
+    if not (torch.equal(mask, want_m) and torch.equal(canvas, want_c)):
+        fail(f"rasterize_zbuffer differs from its plain version ({label}): "
+             f"{(mask != want_m).sum().item()} mask bits, "
+             f"{(canvas != want_c).sum().item()} canvas values")
+    b, n = rows.shape
+    print(f"[kernels] rasterize_zbuffer == plain ({label}) at B={b} N={n} {H}x{W} "
+          f"F={values.shape[-1]}: {int(mask.sum())} occupied pixels")
+    return (canvas - want_c).abs().max().item()
+
+
+def hold_keys(label: str, pix, key):
+    """K1 on these keys, held to its plain version bit for bit; returns the
+    max abs error."""
+    from pmf_tpu_torch.ops import zbuffer
+
+    got = zbuffer.zbuffer_keys(pix, key, H, W)
+    torch.cuda.synchronize()
+    want = zbuffer.zbuffer_keys_plain(pix, key, H, W)
+    if not torch.equal(got, want):
+        fail(f"zbuffer_keys differs from its plain version ({label}): "
+             f"{(got != want).sum().item()} pixels")
+    b, n = pix.shape
+    print(f"[kernels] zbuffer_keys == plain ({label}) at B={b} N={n} {H}x{W}: "
+          f"{int((got != zbuffer.IMAX).sum())} occupied pixels")
+    return float((got.long() - want.long()).abs().max().item())
+
+
+def check_kernels(dev, cfg, batch, smi):
     from pmf_tpu_torch.data.perspective_pipeline import view_geometry
     from pmf_tpu_torch.ops import rasterize, zbuffer
     from pmf_tpu_torch.ops.scatter import packed_keys
 
     rows, cols, keep, depth, vals, _ = view_geometry(*batch, cfg)
     rows, cols, depth, keep = force_ties(rows, cols, depth, keep, seed=1)
+    vals = vals.contiguous()
     entries = []
 
-    # K2 at the batched path's shapes
-    args = (rows, cols, depth, keep, vals.contiguous(), H, W)
-    canvas, mask = rasterize.rasterize_zbuffer(*args)
-    torch.cuda.synchronize()
-    want_c, want_m = rasterize.rasterize_zbuffer_plain(*args)
-    if not (torch.equal(mask, want_m) and torch.equal(canvas, want_c)):
-        fail(f"rasterize_zbuffer differs from its plain version: "
-             f"{(mask != want_m).sum().item()} mask bits, max canvas error "
-             f"{(canvas - want_c).abs().max().item()}")
-    err = (canvas - want_c).abs().max().item()
-    print(f"[kernels] rasterize_zbuffer == plain at B={B} N={N} {H}x{W} F={F}: "
-          f"{int(mask.sum())} occupied pixels, max_abs_err {err}")
+    # K2 at the batched path's shapes, then the cases off that path: the
+    # 64-bit keys (N > 65535) and the key-width boundary, contention, and a
+    # batch with every point dropped
+    err = hold_rasterize("main path, forced ties", rows, cols, depth, keep, vals)
+    for label, (b, n, pixels) in (("64-bit keys", (1, 131072, 0)),
+                                  ("key-width boundary", (2, 65535, 0)),
+                                  ("key-width boundary", (2, 65536, 0)),
+                                  ("contention: every point on 64 pixels", (2, N, 64))):
+        hold_rasterize(label, *random_points(dev, 7 + n + pixels, b, n, pixels))
+    hold_rasterize("every point dropped", rows[:2], cols[:2], depth[:2],
+                   torch.zeros_like(keep[:2]), vals[:2])
+    args = (rows, cols, depth, keep, vals, H, W)
 
     pix64 = torch.where(keep, rows.clamp(0, H - 1).long() * W + cols.clamp(0, W - 1).long(), H * W)
     idx = torch.arange(N, device=dev)
@@ -119,8 +260,9 @@ def check_kernels(dev, cfg, batch):
         return torch.where(hit[..., None], rows_, 0.0), hit
 
     lib_c, lib_m = library_rasterize()
-    if not (torch.equal(lib_c.reshape(canvas.shape), canvas)
-            and torch.equal(lib_m.reshape(mask.shape), mask)):
+    want_c, want_m = rasterize.rasterize_zbuffer_plain(*args)
+    if not (torch.equal(lib_c.reshape(want_c.shape), want_c)
+            and torch.equal(lib_m.reshape(want_m.shape), want_m)):
         fail("the library yardstick for rasterize_zbuffer computes another function")
     kept = int(keep.sum())
     bnd, by = bound_ms(B * N * (4 + 4 + 4 + 1 + 4 * F) + B * H * W * (4 * F + 1),
@@ -131,24 +273,24 @@ def check_kernels(dev, cfg, batch):
         "replaces": "pmf_tpu/ops/pallas/tile_fill.py:148",
         "max_abs_err": err,
         "ms": time_ms(lambda: rasterize.rasterize_zbuffer(*args)),
+        "device_ms": device_ms(lambda: rasterize.rasterize_zbuffer(*args)),
         "plain_ms": time_ms(lambda: rasterize.rasterize_zbuffer_plain(*args), iters=5),
         "bound_ms": bnd, "bound_by": by,
         "library_ms": time_ms(library_rasterize),
     })
 
-    # K1 at the per-scan path's shapes (one scan), and once for the batch
+    # K1 at the per-scan path's shapes (one scan), once for the batch, and
+    # on the contention and all-dropped points
     pix, key, _ = packed_keys(rows, cols, depth, keep, H, W, 1 / 64)
-    for b_sz in (B, 1):
-        p, k = pix[:b_sz].contiguous(), key[:b_sz].contiguous()
-        got = zbuffer.zbuffer_keys(p, k, H, W)
-        torch.cuda.synchronize()
-        want = zbuffer.zbuffer_keys_plain(p, k, H, W)
-        if not torch.equal(got, want):
-            fail(f"zbuffer_keys differs from its plain version at B={b_sz}: "
-                 f"{(got != want).sum().item()} pixels")
-        print(f"[kernels] zbuffer_keys == plain at B={b_sz} N={N} {H}x{W}: "
-              f"{int((got != zbuffer.IMAX).sum())} occupied pixels")
+    hold_keys("main path, forced ties", pix.contiguous(), key.contiguous())
     p1, k1 = pix[:1].contiguous(), key[:1].contiguous()
+    err = hold_keys("per-scan path", p1, k1)
+    crows, ccols, cdepth, ckeep, _ = random_points(dev, 9, 2, N, pixels=64)
+    hold_keys("contention: every point on 64 pixels",
+              *packed_keys(crows, ccols, cdepth, ckeep, H, W, 1 / 64)[:2])
+    hold_keys("every point dropped",
+              *packed_keys(rows[:2], cols[:2], depth[:2], torch.zeros_like(keep[:2]),
+                           H, W, 1 / 64)[:2])
     p1_64 = p1.long()
 
     def library_keys():
@@ -162,12 +304,22 @@ def check_kernels(dev, cfg, batch):
         "name": "zbuffer_keys", "route": "cuda",
         "source": "pmf_tpu_torch/csrc/zbuffer_keys.cu",
         "replaces": "pmf_tpu/ops/pallas/zbuffer.py:45",
-        "max_abs_err": float((got.long() - want.long()).abs().max().item()),
+        "max_abs_err": err,
         "ms": time_ms(lambda: zbuffer.zbuffer_keys(p1, k1, H, W)),
+        "device_ms": device_ms(lambda: zbuffer.zbuffer_keys(p1, k1, H, W)),
         "plain_ms": time_ms(lambda: zbuffer.zbuffer_keys_plain(p1, k1, H, W)),
         "bound_ms": bnd, "bound_by": by,
         "library_ms": time_ms(library_keys),
     })
+    for e in entries:
+        print(f"[timing] {e['name']}: ms {e['ms']:.5g} (host-inclusive), device_ms "
+              f"{e['device_ms']:.5g} (CUDA graph), bound {e['bound_ms']:.5g} "
+              f"({e['bound_by']}), plain {e['plain_ms']:.5g}, library "
+              f"{e['library_ms']:.5g} on {smi}")
+
+    trace("rasterize_zbuffer", lambda: rasterize.rasterize_zbuffer(*args), smi)
+    trace("zbuffer_keys", lambda: zbuffer.zbuffer_keys(p1, k1, H, W), smi)
+    trace("zbuffer_keys library call (full + scatter_reduce_)", library_keys, smi)
     return entries
 
 
@@ -329,13 +481,13 @@ def main():
     raw = make_inputs(np.random.default_rng(0), B, N, H, W)
     batch = [torch.from_numpy(a).to(dev) for a in raw]
 
-    entries = check_kernels(dev, cfg, batch)
+    entries = check_kernels(dev, cfg, batch, smi)
     check_reference(dev)
     launches = main_path(dev, cfg, batch, raw, smi)
     for e in entries:
         e["launches"] = launches[e["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

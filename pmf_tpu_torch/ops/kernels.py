@@ -33,9 +33,9 @@ CFLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "pmf_zbuffer_keys": [_P, _P, _P, _I, _I, _I, _P],
+    "pmf_zbuffer_keys": [_P, _P, _P, _I, _I, _I, _I, _P],
     "pmf_rasterize_zbuffer": [_P, _P, _P, _P, _P, _P, _P, _P,
-                              _I, _I, _I, _I, _I, ctypes.c_float, _P],
+                              _I, _I, _I, _I, _I, ctypes.c_float, _I, _P],
 }
 
 
@@ -49,9 +49,9 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(CFLAGS).encode())
-    for name in SOURCES:
-        h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+    for path in sorted(CSRC.iterdir()):  # the sources and the headers they include
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     return BUILD_DIR / f"libpmf_kernels_{h.hexdigest()[:16]}.so"
 
 
@@ -100,12 +100,20 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
         raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
+    if t.shape != shape:
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 
 
-def raise_on_error(rc: int, kernel: str) -> None:
+def launch(entry: str, device: torch.device, *args) -> None:
+    """Call the C entry point `entry` with `args`, then `device`'s index and
+    its current stream, and raise if it returns a CUDA error. The entry
+    makes the device current for its launches (csrc/device_guard.cuh). The
+    stream goes as its raw handle, which builds no Python Stream object: K1
+    is short enough on the device that the host's per-call work sets its
+    time."""
+    index = device.index
+    rc = getattr(load(), entry)(*args, index, torch._C._cuda_getCurrentRawStream(index))
     if rc:
-        raise RuntimeError(f"{kernel} failed to launch: CUDA error {rc}")
+        raise RuntimeError(f"{entry} failed: CUDA error {rc}")

@@ -5,12 +5,14 @@ rasterize_zbuffer_pallas`. Each pixel takes the point with the smallest
 quantized depth dq = int(clip(depth / depth_quant, 0, 65535)), the lowest
 point index on ties, and gets that point's F values and an occupancy bit.
 
-The CUDA kernel is `csrc/rasterize.cu`: a 64-bit atomicMin of
-(dq << 32) | index per point, then one writer per pixel. It is bound by
-bytes: about 104 MB at the eval batch (B = 8, N = 32768, 384x1232, F = 6),
-so about 31 us on an H100. `rasterize_zbuffer_plain` is the same function
-in plain PyTorch (a stable sort on (pixel, dq)): the CPU path, and the
-yardstick the kernel is held to.
+The CUDA kernel is `csrc/rasterize.cu`: an atomicMin of the key
+(dq << 16) | index per point, 32-bit for N <= 65535 points a scan, else
+(dq << 32) | index in 64 bits (the C entry chooses by N; the scratch holds
+either), then one writer per pixel. It is bound by bytes: about 104 MB at
+the eval batch (B = 8, N = 32768, 384x1232, F = 6), so about 31 us on an
+H100. `rasterize_zbuffer_plain` is the same function in plain PyTorch (a
+stable sort on (pixel, dq)): the CPU path, and the yardstick the kernel is
+held to.
 """
 from __future__ import annotations
 
@@ -46,9 +48,9 @@ def rasterize_zbuffer_plain(rows, cols, depth, keep, values, H: int, W: int,
 
 def rasterize_zbuffer(rows, cols, depth, keep, values, H: int, W: int,
                       depth_quant: float = 1.0 / 64.0):
-    """`rasterize_zbuffer_plain` on the CPU; on CUDA tensors, one launch of
-    the K2 kernel for the whole batch (it raises rather than fall back)."""
-    if values.device.type == "cpu":
+    """`rasterize_zbuffer_plain` on the CPU; on CUDA tensors, one call of
+    the K2 kernels for the whole batch (it raises rather than fall back)."""
+    if values.is_cpu:
         return rasterize_zbuffer_plain(rows, cols, depth, keep, values, H, W,
                                        depth_quant)
     B, N, F = values.shape
@@ -57,16 +59,14 @@ def rasterize_zbuffer(rows, cols, depth, keep, values, H: int, W: int,
                            (depth, "depth", torch.float32), (keep, "keep", torch.bool)):
         kernels.check(t, name, dtype, (B, N), dev)
     kernels.check(values, "values", torch.float32, (B, N, F), dev)
-    lib = kernels.load()
-    with torch.cuda.device(dev):
-        keys = torch.full((B, H * W), -1, dtype=torch.int64, device=dev)
-        canvas = torch.empty((B, H, W, F), dtype=torch.float32, device=dev)
-        mask = torch.empty((B, H, W), dtype=torch.bool, device=dev)
-        rc = lib.pmf_rasterize_zbuffer(
-            rows.data_ptr(), cols.data_ptr(), depth.data_ptr(), keep.data_ptr(),
-            values.data_ptr(), keys.data_ptr(), canvas.data_ptr(), mask.data_ptr(),
-            B, N, H, W, F, depth_quant, torch.cuda.current_stream().cuda_stream)
-    kernels.raise_on_error(rc, "rasterize_zbuffer")
+    canvas = values.new_empty((B, H, W, F))
+    mask = torch.empty((B, H, W), dtype=torch.bool, device=dev)
+    # scratch for the key image: 8 B a pixel holds the 32- or 64-bit keys
+    # that the C entry picks by N
+    keys = torch.empty((B, H * W), dtype=torch.int64, device=dev)
+    kernels.launch("pmf_rasterize_zbuffer", dev, rows.data_ptr(), cols.data_ptr(),
+                   depth.data_ptr(), keep.data_ptr(), values.data_ptr(), keys.data_ptr(),
+                   canvas.data_ptr(), mask.data_ptr(), B, N, H, W, F, depth_quant)
     rasterize_zbuffer.launches += 1
     return canvas, mask
 

@@ -1,10 +1,12 @@
 """K1: scatter-min of packed z-buffer keys into a key image.
 
 Counterpart of the Pallas TPU kernel `pmf_tpu/ops/pallas/zbuffer.py:
-zbuffer_pallas`. The CUDA kernel is `csrc/zbuffer_keys.cu` (one int32
-atomicMin per point; bound by bytes, about 0.7 us per eval scan on an H100,
-so launch latency dominates). `zbuffer_keys_plain` is the same function in
-plain PyTorch: the CPU path, and the yardstick the kernel is held to.
+zbuffer_pallas`. The CUDA kernel is `csrc/zbuffer_keys.cu`: one cooperative
+launch that writes INT32_MAX over the image, waits at a grid-wide barrier,
+then does one int32 atomicMin per point. It is bound by bytes, about 0.7 us
+per eval scan on an H100, so the host's work to issue a call dominates.
+`zbuffer_keys_plain` is the same function in plain PyTorch: the CPU path,
+and the yardstick the kernel is held to.
 """
 from __future__ import annotations
 
@@ -33,21 +35,19 @@ def zbuffer_keys_plain(pix: torch.Tensor, key: torch.Tensor, H: int,
 def zbuffer_keys(pix: torch.Tensor, key: torch.Tensor, H: int,
                  W: int) -> torch.Tensor:
     """`zbuffer_keys_plain` on the CPU; on CUDA tensors, one launch of the
-    K1 kernel for the whole batch (it raises rather than fall back)."""
-    if pix.device.type == "cpu":
+    K1 kernel for the whole batch (it raises rather than fall back). The
+    launch is short on the device, so the host's work per call is kept to
+    the input checks, one allocation and one C call."""
+    if pix.is_cpu:
         return zbuffer_keys_plain(pix, key, H, W)
     B, N = pix.shape
     for t, name in ((pix, "pix"), (key, "key")):
         kernels.check(t, name, torch.int32, (B, N), pix.device)
-    lib = kernels.load()
-    with torch.cuda.device(pix.device):
-        out = torch.full((B, H * W), IMAX, dtype=torch.int32, device=pix.device)
-        rc = lib.pmf_zbuffer_keys(pix.data_ptr(), key.data_ptr(), out.data_ptr(),
-                                  B, N, H * W,
-                                  torch.cuda.current_stream().cuda_stream)
-    kernels.raise_on_error(rc, "zbuffer_keys")
+    out = pix.new_empty((B, H, W))
+    kernels.launch("pmf_zbuffer_keys", pix.device, pix.data_ptr(), key.data_ptr(),
+                   out.data_ptr(), B, N, H * W)
     zbuffer_keys.launches += 1
-    return out.reshape(B, H, W)
+    return out
 
 
 zbuffer_keys.launches = 0

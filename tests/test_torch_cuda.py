@@ -11,6 +11,7 @@ import torch
 
 from pmf_tpu_torch.ops import rasterize as trast
 from pmf_tpu_torch.ops import zbuffer as tzbuf
+from pmf_tpu_torch.ops.scatter import packed_keys
 
 IMAX = 2**31 - 1
 
@@ -35,6 +36,28 @@ def points_with_ties(seed, B, N, H, W, F=6):
     keep = rng.random((B, N)) > 0.2
     vals = rng.normal(size=(B, N, F)).astype(np.float32)
     vals[..., 5] = rng.integers(0, 20, (B, N))
+    return rows, cols, depth, keep, vals
+
+
+def crowded_points(seed, B, N, H, W, F=6, side=2):
+    """`points_with_ties`, but every point on a side x side square of pixels
+    at 4 depth quanta: heavy contention, and ties at equal dq."""
+    rows, cols, depth, keep, vals = points_with_ties(seed, B, N, H, W, F)
+    rng = np.random.default_rng(seed + 1)
+    rows = (H // 2 + rng.integers(0, side, (B, N))).astype(np.int32)
+    cols = (W // 2 + rng.integers(0, side, (B, N))).astype(np.int32)
+    depth = (rng.integers(64, 68, (B, N)) / 64 + rng.uniform(0, 1 / 64, (B, N))).astype(np.float32)
+    return rows, cols, depth, keep, vals
+
+
+def points_case(case, seed, B, N, H, W):
+    """The points of a named case: "ties" (`points_with_ties`), "crowded"
+    (`crowded_points`) or "dropped" (`points_with_ties` with no point kept)."""
+    if case == "crowded":
+        return crowded_points(seed, B, N, H, W)
+    rows, cols, depth, keep, vals = points_with_ties(seed, B, N, H, W)
+    if case == "dropped":
+        keep[:] = False
     return rows, cols, depth, keep, vals
 
 
@@ -88,3 +111,63 @@ def test_kernel_wrappers_reject_bad_inputs(cuda_device):
         trast.rasterize_zbuffer(rows, cols, depth, keep, vals.transpose(0, 1), 8, 8)
     with pytest.raises(ValueError):
         tzbuf.zbuffer_keys(rows, cols.cpu(), 8, 8)
+
+
+# N = 65535 is the most points a scan with 32-bit keys, 65536 the fewest with
+# 64-bit keys; 131072 is PVConfig's default buffer
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,B,N", [("ties", 1, 131072), ("ties", 2, 65535),
+                                      ("ties", 2, 65536), ("crowded", 2, 32768),
+                                      ("dropped", 2, 32768)])
+def test_rasterize_kernel_cases_match_plain(cuda_device, case, B, N):
+    H, W = 384, 1232
+    args = [torch.from_numpy(a).to(cuda_device) for a in points_case(case, 7, B, N, H, W)]
+    canvas, mask = trast.rasterize_zbuffer(*args, H, W)
+    torch.cuda.synchronize()
+    want_c, want_m = trast.rasterize_zbuffer_plain(*args, H, W)
+    assert torch.equal(mask, want_m) and torch.equal(canvas, want_c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["crowded", "dropped"])
+def test_zbuffer_keys_kernel_cases_match_plain(cuda_device, case):
+    B, N, H, W = 2, 32768, 384, 1232
+    rows, cols, depth, keep, _ = (torch.from_numpy(a).to(cuda_device)
+                                  for a in points_case(case, 8, B, N, H, W))
+    pix, key, _ = packed_keys(rows, cols, depth, keep, H, W, 1 / 64)
+    got = tzbuf.zbuffer_keys(pix, key, H, W)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tzbuf.zbuffer_keys_plain(pix, key, H, W))
+
+
+@pytest.mark.cuda
+def test_kernels_replay_in_cuda_graph(cuda_device):
+    """Both wrappers captured into one CUDA graph: a replay on new points
+    copied into the captured inputs gives what an eager call gives."""
+    B, N, H, W = 2, 4096, 64, 200
+    first, second = ([torch.from_numpy(a).to(cuda_device) for a in points_with_ties(s, B, N, H, W)]
+                     for s in (9, 10))
+    inputs = [t.clone() for t in first]
+
+    def both():
+        canvas, mask = trast.rasterize_zbuffer(*inputs, H, W)
+        pix, key, _ = packed_keys(*inputs[:4], H, W, 1 / 64)
+        return canvas, mask, tzbuf.zbuffer_keys(pix, key, H, W)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        both()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = both()
+    for points in (second, first):
+        for t, p in zip(inputs, points):
+            t.copy_(p)
+        for o in outs:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        eager = both()
+        assert all(torch.equal(o, e) for o, e in zip(outs, eager))

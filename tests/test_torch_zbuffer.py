@@ -13,7 +13,7 @@ from pmf_tpu.ops.pallas.zbuffer import zbuffer_pallas
 from pmf_tpu_torch.ops import rasterize as trast
 from pmf_tpu_torch.ops import scatter as tscatter
 from pmf_tpu_torch.ops import zbuffer as tzbuf
-from tests.test_torch_cuda import pix_keys_with_ties, points_with_ties
+from tests.test_torch_cuda import pix_keys_with_ties, points_case, points_with_ties
 
 
 def test_zbuffer_keys_plain_matches_pallas():
@@ -21,6 +21,25 @@ def test_zbuffer_keys_plain_matches_pallas():
     pix, key = pix_keys_with_ties(0, B, N, H, W)
     got = tzbuf.zbuffer_keys_plain(torch.from_numpy(pix), torch.from_numpy(key), H, W)
     assert got.shape == (B, H, W) and got.dtype == torch.int32
+    for b in range(B):
+        want = zbuffer_pallas(jnp.asarray(pix[b]), jnp.asarray(key[b]), H, W,
+                              interpret=True)
+        np.testing.assert_array_equal(got[b].numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("case", ["crowded", "dropped"])
+def test_zbuffer_keys_plain_matches_pallas_cases(case):
+    """All points on four pixels with many equal keys, or every point
+    dropped (the H*W sentinel and INT32_MAX, as packed_keys gives them)."""
+    B, N, H, W = 2, 600, 24, 40
+    rng = np.random.default_rng(11)
+    if case == "crowded":
+        pix = (rng.integers(0, 4, (B, N)) * (H * W // 4)).astype(np.int32)
+        key = rng.integers(0, 8, (B, N)).astype(np.int32)
+    else:
+        pix = np.full((B, N), H * W, np.int32)
+        key = np.full((B, N), tzbuf.IMAX, np.int32)
+    got = tzbuf.zbuffer_keys_plain(torch.from_numpy(pix), torch.from_numpy(key), H, W)
     for b in range(B):
         want = zbuffer_pallas(jnp.asarray(pix[b]), jnp.asarray(key[b]), H, W,
                               interpret=True)
@@ -49,6 +68,23 @@ def test_rasterize_plain_matches_pallas(B, N, H, W):
     c2, m2 = trast.rasterize_zbuffer(*map(torch.from_numpy, (rows, cols, depth, keep, vals)), H, W)
     assert torch.equal(c2, canvas) and torch.equal(m2, mask)
     assert trast.rasterize_zbuffer.launches == before
+
+
+# the CUDA kernel's key is 32-bit up to N = 65535 points a scan and 64-bit
+# from 65536; the plain version has no such switch, and both sides of it are
+# held to the Pallas kernel here
+@pytest.mark.parametrize("case,B,N,H,W", [("ties", 1, 65535, 8, 128), ("ties", 1, 65536, 8, 128),
+                                          ("crowded", 2, 3000, 16, 40),
+                                          ("dropped", 2, 3000, 16, 40)])
+def test_rasterize_plain_matches_pallas_cases(case, B, N, H, W):
+    rows, cols, depth, keep, vals = points_case(case, 12, B, N, H, W)
+    canvas, mask = trast.rasterize_zbuffer_plain(
+        *map(torch.from_numpy, (rows, cols, depth, keep, vals)), H, W)
+    want_c, want_m = rasterize_zbuffer_pallas(
+        *map(jnp.asarray, (rows, cols, depth, keep, vals)), H, W, interpret=True)
+    np.testing.assert_array_equal(mask.numpy(), np.asarray(want_m))
+    np.testing.assert_array_equal(canvas.numpy(), np.asarray(want_c))
+    assert (case == "dropped") == (not mask.any())
 
 
 @pytest.mark.parametrize("N", [1000, 5000])
