@@ -22,12 +22,28 @@ Phases, each of which ends the run with a non-zero exit on failure:
      PMFNet → argmax, then one scan through the Inference.run loop of
      tools/infer_kitti (per-scan view → forward → KNN lift → IoU). The
      kernels' launch counts are read around this phase alone, and both
-     must be > 0. Prints the batched path's scans/s.
+     must be > 0. Prints the batched path's scans/s;
+  6. train: (a) the train view (flip, 7° rotation, a crop offset, a fixed
+     ColorJitter) with return_points through K2 and K1, bit-equal to the
+     same call with the plain fills; (b) one float32 train step at a small
+     size on the card against the CPU: every loss term within 1e-4
+     relative, BN running statistics within 1e-5 relative, and each
+     parameter gradient within 1e-3 of its norm in the same step run in
+     float64 (check_train_reference says why not float32); (c) the full-width
+     train path: the Trainer on in-memory synthetic scans (PMF-ResNet34,
+     bf16, batch 8, 256x1024 crop, 32768 points, point-domain Lovász), 2
+     warm-up and 8 timed steps and one validation pass, with finite losses,
+     parameters and BN statistics changed, confusion matrices summing to the
+     labelled pixels and both kernels launched; prints ms/step, scans/s,
+     the split of one step into view/forward/loss/backward/optimizer (CUDA
+     events) and the peak device memory. The kernels' launch counts over
+     (c) are `launches_train` in the kernel line.
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Without a CUDA card the script exits 1 and
 prints neither.
 """
+import copy
 import json
 import re
 import statistics
@@ -39,6 +55,7 @@ import numpy as np
 import torch
 
 H, W, B, N, F = 384, 1232, 8, 32768, 6
+TH, TW = 256, 1024          # the train view (bench.py:67, pmf_kitti.yaml proj_ht/proj_wt)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 
@@ -431,7 +448,7 @@ def main_path(dev, cfg, batch, raw, smi):
           f"point mIoU {report['point']['mIoU']:.4f}, pixel mIoU {report['pixel']['mIoU']:.4f}")
 
     with torch.inference_mode():
-        plain = _build_batch(*batch, cfg, rasterize.rasterize_zbuffer_plain)
+        plain = _build_batch(*batch, cfg, fill=rasterize.rasterize_zbuffer_plain)
         if not all(torch.equal(a, b) for a, b in zip((f, m, lab), plain)):
             fail("the batched path gives other features, mask or labels with the plain fill")
         print("[main] batched path: kernel fill == plain fill (features, mask, labels)")
@@ -449,6 +466,255 @@ def main_path(dev, cfg, batch, raw, smi):
     print(f"[main] batched eval build_batch+PMFNet+argmax, batch {B}, {H}x{W}, bf16: "
           f"{B / med:.2f} scans/s (median of {len(times)} batches: {med * 1e3:.2f} ms, "
           f"min {min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}) on {smi}")
+    return launches
+
+
+def train_cfg(**kw):
+    from pmf_tpu_torch.data import PVConfig
+
+    return PVConfig(canvas_h=H, canvas_w=W + 16, proj_h=H, proj_w=W, proj_ht=TH, proj_wt=TW,
+                    h_pad=7, w_pad=3, n_points=N, img_jitter=(0.4, 0.4, 0.4), **kw)
+
+
+def fixed_aug(b: int, dev, theta_deg=7.0, top=50, left=100):
+    """Flip on, a rotation, a nonzero crop offset and a fixed ColorJitter for
+    each of `b` scans."""
+    from pmf_tpu_torch.data import AugParams
+
+    full = lambda v, dt: torch.full((b,), v, dtype=dt, device=dev)
+    jitter = (torch.tensor([[1.2, 0.8, 1.1]], device=dev).expand(b, 3).contiguous(),
+              torch.tensor([[2, 0, 1]], device=dev).expand(b, 3).contiguous())
+    return AugParams(full(True, torch.bool), full(np.deg2rad(theta_deg), torch.float32),
+                     full(top, torch.int64), full(left, torch.int64), jitter)
+
+
+def check_train_view(dev, batch):
+    """(a): build_batch(train=True, return_points=True) through K2 and K1 ==
+    the same call with the plain fills, bit for bit."""
+    from pmf_tpu_torch.data import build_batch
+    from pmf_tpu_torch.data.perspective_pipeline import _build_batch
+    from pmf_tpu_torch.ops import rasterize, zbuffer
+
+    cfg, aug = train_cfg(), fixed_aug(B, dev)
+    with torch.no_grad():
+        f, m, lab, (pix, plab, won) = build_batch(*batch, cfg, train=True, aug_override=aug,
+                                                  return_points=True)
+        torch.cuda.synchronize()
+        want = _build_batch(*batch, cfg, True, None, aug, True,
+                            fill=rasterize.rasterize_zbuffer_plain, keys=zbuffer.zbuffer_keys_plain)
+    names = ("features", "mask", "labels", "pt_pix", "pt_label", "pt_won")
+    for name, a, b in zip(names, (f, m, lab, pix, plab, won), (*want[:3], *want[3])):
+        if not torch.equal(a, b):
+            fail(f"the train view with K2+K1 differs from the plain fills in {name}")
+    labelled = int((lab > 0).sum())
+    if f.shape != (B, TH, TW, 8) or int((won & (plab > 0)).sum()) != labelled or labelled == 0:
+        fail(f"train view: shape {tuple(f.shape)}, {labelled} labelled pixels against "
+             f"{int((won & (plab > 0)).sum())} labelled winner points")
+    print(f"[train] (a) train view B={B} N={N} {TH}x{TW} (flip, 7 deg, crop 50/100, fixed "
+          f"ColorJitter): K2+K1 == plain fills (features, mask, labels, pt_pix, pt_label, "
+          f"pt_won); {int(m.sum())} occupied pixels, {labelled} labelled = labelled winners")
+
+
+def train_step_run(model, dev, batch):
+    """One train step (make_pmf_train_step, hybrid optimizer) of `model` on
+    `batch` moved to `dev`: (aux, gradients by name, BN running statistics)."""
+    from pmf_tpu_torch.train import HybridOptimizer, LossConfig, make_pmf_train_step
+
+    feature, label, points = (t.to(dev) if torch.is_tensor(t) else tuple(x.to(dev) for x in t)
+                              for t in batch)
+    opt = HybridOptimizer(model, lambda step: 1e-3, 0.9, 1e-5)
+    cfg = LossConfig(alpha=tuple([0.0] + [1.0] * 19))
+    aux = make_pmf_train_step(model, opt, cfg)(feature, label, None, points)
+    grads = {k: p.grad.detach().double().cpu() for k, p in model.named_parameters()}
+    stats = {k: v.detach().cpu() for k, v in model.state_dict().items() if "running" in k}
+    return {k: v.cpu() for k, v in aux.items()}, grads, stats
+
+
+def grad_errors(g_ref, g):
+    """‖Δg‖ / ‖g‖ of each parameter, sorted."""
+    return sorted(((g[k] - v).norm() / v.norm()).item() for k, v in g_ref.items() if v.norm() > 0)
+
+
+def check_train_reference(dev):
+    """(b): one float32 train step on the card against the CPU at a small
+    size (2 scans, 48x96 crop, base 8, dropout 0, the same random weights
+    and batch): every loss term within 1e-4 relative and the BN running
+    statistics within 1e-5 of each tensor's norm.
+
+    The float32 gradients of this network cannot be held to 1e-3: the
+    kinks of ReLU and max pooling make them move with the last bits of the
+    forward pass, by percents of a parameter's norm when the batch is
+    merely reordered (pmf_tpu's too: tests/test_torch_train.py). In
+    float64 they move in the last digits only. So the gradients are
+    compared in the same step run in float64 on both devices, each within
+    1e-3 of its norm + 1e-7; the float32 ones are printed."""
+    from pmf_tpu_torch.data import PVConfig, build_batch
+    from pmf_tpu_torch.data.synthetic import make_inputs
+    from pmf_tpu_torch.models import PMFNet, random_weights
+
+    h, w = 64, 160
+    cfg = PVConfig(canvas_h=h, canvas_w=w + 16, proj_h=h, proj_w=w, proj_ht=48, proj_wt=96,
+                   h_pad=2, w_pad=2, n_points=2048)
+    raw = make_inputs(np.random.default_rng(8), 2, 2048, h, w)
+    f, _, lab, pts = build_batch(*map(torch.from_numpy, raw), cfg, train=True,
+                                 aug_override=fixed_aug(2, "cpu", top=4, left=20),
+                                 return_points=True)
+    batch = (f, lab, pts)
+    model = random_weights(PMFNet(nclasses=20, base_channels=8, dropout_rate=0.0), seed=9)
+    model64 = copy.deepcopy(model).double()
+    model64.dtype = torch.float64
+    cpu = torch.device("cpu")
+    aux_c, g_c, s_c = train_step_run(copy.deepcopy(model), cpu, batch)
+    aux_d, g_d, s_d = train_step_run(copy.deepcopy(model).to(dev), dev, batch)
+    _, g64_c, _ = train_step_run(copy.deepcopy(model64), cpu, batch)
+    _, g64_d, _ = train_step_run(copy.deepcopy(model64).to(dev), dev, batch)
+
+    loss_err = max(abs(aux_d[k].item() - aux_c[k].item()) / abs(aux_c[k].item())
+                   for k in aux_c if k not in ("conf", "conf_cam"))
+    stat_err = max(((s_d[k] - s_c[k]).norm() / s_c[k].norm()).item() for k in s_c)
+    if loss_err > 1e-4 or stat_err > 1e-5:
+        fail(f"train step: losses differ by {loss_err:.3g} relative (tolerance 1e-4), BN "
+             f"statistics by {stat_err:.3g} (tolerance 1e-5)")
+    worst = 0.0
+    for k, g in g64_c.items():
+        err, norm = (g64_d[k] - g).norm().item(), g.norm().item()
+        worst = max(worst, err / (1e-3 * norm + 1e-7))
+        if err > 1e-3 * norm + 1e-7:
+            fail(f"float64 train step gradient {k}: card vs CPU {err:.3g}, norm {norm:.3g}")
+    e64, e32 = grad_errors(g64_c, g64_d), grad_errors(g_c, g_d)
+    print(f"[train] (b) f32 train step card vs CPU at 2x48x96, base 8: losses max rel diff "
+          f"{loss_err:.3g} (tol 1e-4), BN running stats max diff {stat_err:.3g} of each "
+          f"tensor's norm (tol 1e-5); the same step in float64: {len(e64)} gradients within "
+          f"1e-3 of their norm + 1e-7 (the worst at {worst:.3g} of that), median |dg|/|g| "
+          f"{e64[len(e64) // 2]:.3g}; the float32 gradients for comparison: median |dg|/|g| "
+          f"{e32[len(e32) // 2]:.3g}, max {e32[-1]:.3g}")
+
+
+def profile_step(step, smi, top: int = 12):
+    """torch.profiler over one trainer step (host batch → view → step): the
+    device's busy time against the step's wall time, and the PyTorch
+    operations whose own kernels take the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in events if e.device_type == DeviceType.CUDA) / 1e3
+    ops = sorted(((e.self_device_time_total / 1e3, e.count, e.key) for e in events
+                  if e.device_type == DeviceType.CPU and e.self_device_time_total > 0),
+                 reverse=True)
+    print(f"[trace] train step: device busy {busy:.2f} ms of {wall_ms:.2f} ms wall (profiled) "
+          f"on {smi}; the operations whose kernels take the most device time:")
+    for t, n, k in ops[:top]:
+        print(f"[trace]   device {t:9.3f} ms  x{n:<5d} {k}")
+
+
+def scan_reader(raw, n_pool: int):
+    """reader(i) → the numpy sample dict of synthetic scan i mod n_pool."""
+    keys = ("points", "labels", "valid", "proj_matrix", "image", "img_h", "img_w")
+    return lambda i: {k: a[i % n_pool] for k, a in zip(keys, raw)}
+
+
+def full_width_train(dev, smi):
+    """(c): the Trainer at full width; returns the kernels' launch counts
+    over its train and validation runs."""
+    from pmf_tpu_torch.config import Options
+    from pmf_tpu_torch.data import build_batch
+    from pmf_tpu_torch.data.synthetic import make_inputs
+    from pmf_tpu_torch.models import build_model, random_weights
+    from pmf_tpu_torch.ops import rasterize, zbuffer
+    from pmf_tpu_torch.train import Trainer, pmf_losses
+    from pmf_tpu_torch.train.trainer import batches
+
+    sensor = {"canvas_h": H, "canvas_w": W + 16, "proj_h": H, "proj_w": W, "proj_ht": TH,
+              "proj_wt": TW, "h_pad": 7, "w_pad": 3, "n_points": N}
+    opts = Options(config={"sensor": sensor, "augmentation": {"img_jitter": [0.4, 0.4, 0.4]}},
+                   compute_dtype="bfloat16", batch_size=(B, B), n_epochs=5, warmup_epochs=1)
+    raw = make_inputs(np.random.default_rng(3), 2 * B, N, H, W)
+    reader = scan_reader(raw, 2 * B)
+    torch.manual_seed(0)
+    model = random_weights(build_model(opts), seed=0).to(dev)
+    trainer = Trainer(opts, model, reader, 2 * B, reader, B, dev, [0.0] + [1.0] * 19)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+
+    torch.cuda.reset_peak_memory_stats()
+    zbuffer.zbuffer_keys.launches = 0
+    rasterize.rasterize_zbuffer.launches = 0
+    runs = [trainer.run(0, "Train")]                    # 2 warm-up steps
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for epoch in range(1, 5):                           # 8 timed steps
+        runs.append(trainer.run(epoch, "Train"))
+    torch.cuda.synchronize()
+    ms_step = (time.perf_counter() - t0) / 8 * 1e3
+    train_conf = (trainer.metrics.conf.sum(), trainer.metrics_img.conf.sum())
+    val = trainer.run(0, "Validation")
+    val_conf = (trainer.metrics.conf.sum(), trainer.metrics_img.conf.sum())
+    torch.cuda.synchronize()
+    launches = {"zbuffer_keys": zbuffer.zbuffer_keys.launches,
+                "rasterize_zbuffer": rasterize.rasterize_zbuffer.launches}
+    peak = torch.cuda.max_memory_allocated()
+
+    losses = [v for r in runs + [val] for k, v in r.items() if k.startswith(("loss", "Loss"))]
+    if not all(np.isfinite(losses)) or len(losses) != 6 * len(runs + [val]):
+        fail(f"train path: non-finite or missing losses {runs + [val]}")
+    after = model.state_dict()
+    params = [k for k, _ in model.named_parameters()]
+    stats = [k for k in after if "running" in k]
+    moved = sum(not torch.equal(before[k], after[k]) for k in params)
+    moved_stats = sum(not torch.equal(before[k], after[k]) for k in stats)
+    if moved < len(params) // 2 or moved_stats != len(stats):
+        fail(f"train path: {moved}/{len(params)} parameters and {moved_stats}/{len(stats)} BN "
+             "statistics changed")
+    if train_conf != (2 * B * TH * TW,) * 2 or val_conf != (B * H * W,) * 2:
+        fail(f"confusion matrices sum to {train_conf} (train) and {val_conf} (validation), "
+             f"not the {2 * B * TH * TW} and {B * H * W} labelled pixels")
+    if min(launches.values()) == 0:
+        fail(f"a kernel of the train path was not launched: {launches}")
+
+    # one more step, split by CUDA events (the trainer's pieces, in its order)
+    x = [torch.from_numpy(a[:B]).to(dev) for a in raw]
+    g, opt = trainer.generator, trainer.optimizer
+    splits = []
+    for _ in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        ev[0].record()
+        with torch.no_grad():
+            f, _, lab, pts = build_batch(*x, trainer.pv_cfg, True, g, return_points=True)
+        ev[1].record()
+        model.train()
+        opt.zero_grad()
+        lidar, cam = model(f[..., :5], f[..., 5:8], g)
+        ev[2].record()
+        total, _ = pmf_losses(lidar, cam, lab, trainer.loss_cfg, pts)
+        ev[3].record()
+        total.backward()
+        ev[4].record()
+        opt.step()
+        ev[5].record()
+        torch.cuda.synchronize()
+        splits.append([ev[i].elapsed_time(ev[i + 1]) for i in range(5)])
+    split = [statistics.median(c) for c in zip(*splits)]
+    names = ("view", "forward", "loss", "backward", "optimizer")
+    profile_step(lambda: trainer._step(next(batches(reader, 2 * B, B, True)), True), smi)
+    print(f"[train] (c) Trainer, PMF-ResNet34 bf16, batch {B}, {TH}x{TW} crop, {N} points, "
+          f"point Lovász: {ms_step:.2f} ms/step = {B / ms_step * 1e3:.2f} train scans/s "
+          f"(8 steps after 2 warm-up, host-inclusive) on {smi}")
+    print("[train] (c) one step split (CUDA events, median of 3): "
+          + ", ".join(f"{n} {t:.2f} ms" for n, t in zip(names, split))
+          + f" = {sum(split):.2f} ms on {smi}")
+    print(f"[train] (c) peak device memory {peak / 2**30:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated) on {smi}")
+    print(f"[train] (c) losses finite; {moved}/{len(params)} parameters and {moved_stats}/"
+          f"{len(stats)} BN statistics changed; confusion matrices sum to the labelled pixels "
+          f"({train_conf[0]:.0f} train, {val_conf[0]:.0f} validation); last train loss "
+          f"{runs[-1]['Loss']:.4f}, validation mIoU {val['IOU']:.4f}")
+    print(f"[train] launches on the train path: {json.dumps(launches)}")
     return launches
 
 
@@ -484,10 +750,14 @@ def main():
     entries = check_kernels(dev, cfg, batch, smi)
     check_reference(dev)
     launches = main_path(dev, cfg, batch, raw, smi)
+    check_train_view(dev, batch)
+    check_train_reference(dev)
+    launches_train = full_width_train(dev, smi)
     for e in entries:
         e["launches"] = launches[e["name"]]
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+        e["launches_train"] = launches_train[e["name"]]
+    keys = ("name", "route", "source", "replaces", "launches", "launches_train", "max_abs_err",
+            "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

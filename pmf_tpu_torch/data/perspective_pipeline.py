@@ -1,21 +1,26 @@
-"""Perspective-view preprocessing, eval branch (counterpart of
+"""Perspective-view preprocessing (counterpart of
 `pmf_tpu/data/perspective_pipeline.py`).
 
-Project the LiDAR points into the camera image, centre-crop and pad the view,
-and z-buffer the points into the network input:
+Project the LiDAR points into the camera image, 2D-augment the view (train:
+horizontal flip → rotation → random crop → pad, with ColorJitter on the RGB;
+eval: centre crop → pad), and z-buffer the points into the network input:
   feature [H, W, 8] = depth, x, y, z, intensity, R, G, B (lidar part normalized)
   mask    [H, W]    = projected-point occupancy
   label   [H, W]    = train-class id (0 = empty/ignore)
 
-The geometry works on batched [B, N] point buffers. The batched fill
-(`build_batch`) is the K2 rasterizer, the per-scan fill
-(`build_eval_sample_with_uproj`) the K1 scatter-min plus a gather; each runs
-its CUDA kernel when the tensors are on the card and its plain PyTorch
-version on the CPU.
+The geometry works on batched [B, N] point buffers. The augmentation maps
+the points' integer pixels forward to the view and resamples the RGB by the
+inverse map (nearest neighbour). The batched fill (`build_batch`) is the K2
+rasterizer, and its per-point winner flags (`return_points`) one K1 call for
+the batch; the per-scan fill (`build_eval_sample_with_uproj`) is K1 plus a
+gather. Each runs its CUDA kernel when the tensors are on the card and its
+plain PyTorch version on the CPU.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -23,7 +28,12 @@ import torch.nn.functional as F
 
 from ..ops.projection import perspective_project
 from ..ops.rasterize import rasterize_zbuffer
-from ..ops.scatter import fill_canvas, zbuffer_scatter_packed
+from ..ops.scatter import fill_canvas, point_winner_flags, zbuffer_scatter_packed
+from ..ops.zbuffer import zbuffer_keys
+from .jitter import color_jitter_fixed, jitter_params
+
+ROT_DEG = 15.0   # the train view's rotation bound, degrees
+P_HFLIP = 0.5    # its horizontal-flip probability
 
 
 @dataclass(frozen=True)
@@ -33,15 +43,47 @@ class PVConfig:
     canvas_w: int = 1248    # >= max image width
     proj_h: int = 384       # eval output size
     proj_w: int = 1232
+    proj_ht: int = 256      # train output size
+    proj_wt: int = 1024
     h_pad: int = 7
     w_pad: int = 3
     n_points: int = 131072  # point buffer bucket
     img_mean: tuple = (12.12, 10.88, 0.23, -1.04, 0.21)
     img_stds: tuple = (12.32, 11.47, 6.91, 0.86, 0.16)
+    img_jitter: tuple | None = None  # train ColorJitter (brightness,
+    # contrast, saturation) strengths; None: no jitter
+
+    @property
+    def train_crop(self):
+        return (self.proj_ht - 2 * self.h_pad, self.proj_wt - 2 * self.w_pad)
 
     @property
     def eval_crop(self):
         return (self.proj_h - 2 * self.h_pad, self.proj_w - 2 * self.w_pad)
+
+
+def pv_config(opts) -> PVConfig:
+    """The PVConfig of an experiment's Options: its `sensor` group, and the
+    ColorJitter strengths of `augmentation.img_jitter` (0.4 each unless set;
+    null turns it off). `sensor.pcd_aug: true` (3D point augmentation)
+    raises: it is not ported."""
+    sensor = opts.group("sensor")
+    if sensor.get("pcd_aug"):
+        raise NotImplementedError("3D point augmentation (sensor.pcd_aug) is not ported yet")
+    jitter = opts.group("augmentation").get("img_jitter", (0.4, 0.4, 0.4))
+    return PVConfig(
+        canvas_h=int(sensor.get("canvas_h", 384)),
+        canvas_w=int(sensor.get("canvas_w", 1248)),
+        proj_h=int(sensor.get("proj_h", 384)),
+        proj_w=int(sensor.get("proj_w", 1232)),
+        proj_ht=int(sensor.get("proj_ht", 256)),
+        proj_wt=int(sensor.get("proj_wt", 1024)),
+        h_pad=int(sensor.get("h_pad", 7)),
+        w_pad=int(sensor.get("w_pad", 3)),
+        n_points=int(sensor.get("n_points", 131072)),
+        img_mean=tuple(sensor.get("img_mean", PVConfig.img_mean)),
+        img_stds=tuple(sensor.get("img_stds", PVConfig.img_stds)),
+        img_jitter=tuple(jitter) if jitter else None)
 
 
 def pad_points(pcd: np.ndarray, sem_label: np.ndarray, n_points: int):
@@ -79,23 +121,64 @@ def _round_to_int32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(r >= 2.0 ** 31, 2 ** 31 - 1, out)
 
 
+class AugParams(NamedTuple):
+    """The train view's parameters, one per scan: horizontal flip [B] bool,
+    rotation theta [B] float32 radians, crop offsets top/left [B] int; and
+    `jitter`, the ColorJitter (factors [B, 3], order [B, 3]) or None."""
+    flip: torch.Tensor
+    theta: torch.Tensor
+    top: torch.Tensor
+    left: torch.Tensor
+    jitter: tuple | None = None
+
+
+def _affine_params(generator: torch.Generator, img_h, img_w, cfg: PVConfig) -> AugParams:
+    """Draw the train view's parameters from `generator`: flip with
+    probability P_HFLIP, theta ~ U(-ROT_DEG, ROT_DEG) degrees, crop offsets
+    uniform over the image's slack around the train crop, and the
+    ColorJitter if cfg.img_jitter."""
+    if generator is None:
+        raise ValueError("the train view draws its augmentation from a torch.Generator")
+    B, dev = img_h.shape[0], img_h.device
+    ch, cw = cfg.train_crop
+    u = torch.rand((B, 4), generator=generator, device=dev)
+    slack_h, slack_w = (img_h - ch).clamp(min=0), (img_w - cw).clamp(min=0)
+    top = torch.minimum((u[:, 2] * (slack_h + 1)).long(), slack_h)
+    left = torch.minimum((u[:, 3] * (slack_w + 1)).long(), slack_w)
+    theta = (u[:, 1] * 2.0 - 1.0) * ROT_DEG * (math.pi / 180.0)
+    jitter = jitter_params(generator, B, cfg.img_jitter, dev) if cfg.img_jitter else None
+    return AugParams(u[:, 0] < P_HFLIP, theta, top, left, jitter)
+
+
 def view_geometry(points, labels, valid, proj_matrix, image, img_h, img_w,
-                  cfg: PVConfig):
-    """Project and centre-crop a batch of scans without the fill.
+                  cfg: PVConfig, aug: AugParams | None = None):
+    """Project and crop a batch of scans without the fill: the eval view
+    (centre crop), or with `aug` the train view.
 
     points [B, N, 4], labels [B, N], valid [B, N], proj_matrix [B, 3, 4],
     image [B, Hc, Wc, 3], img_h/img_w [B] int. Returns per point
     (rows, cols int32, keep bool, depth f32, vals [B, N, 6] =
-    depth/x/y/z/i/label) and the cropped, padded RGB view [B, H, W, 3].
+    depth/x/y/z/i/label) and the padded RGB view [B, H, W, 3].
     """
-    B = points.shape[0]
-    dev = points.device
-    out_h, out_w = cfg.proj_h, cfg.proj_w
-    ch, cw = cfg.eval_crop
     rows_f, cols_f, keep = perspective_project(points[..., :3], proj_matrix,
                                                img_h, img_w, valid)
     depth = point_depth(points)
+    vals = torch.cat([depth[..., None], points[..., :4],
+                      labels[..., None].float()], dim=-1)
+    if aug is None:
+        rows_o, cols_o, keep_out, rgb = _eval_view(rows_f, cols_f, keep, image, img_h, img_w, cfg)
+    else:
+        rows_o, cols_o, keep_out, rgb = _train_view(rows_f, cols_f, keep, image, img_h, img_w,
+                                                    cfg, aug)
+    return rows_o, cols_o, keep_out, depth, vals, rgb
 
+
+def _eval_view(rows_f, cols_f, keep, image, img_h, img_w, cfg: PVConfig):
+    """Centre crop and pad: (rows, cols, keep) of the points and the RGB."""
+    B = image.shape[0]
+    dev = image.device
+    out_h, out_w = cfg.proj_h, cfg.proj_w
+    ch, cw = cfg.eval_crop
     # centre crop: a pure shift of the integer pixel. The JAX view's rotation
     # round trip cy + (pr - cy) is exact for |pr| < 2^23, which covers every
     # kept point; past 2^24 px (points not kept) pmf_tpu's own jitted and
@@ -108,8 +191,6 @@ def view_geometry(points, labels, valid, proj_matrix, image, img_h, img_w,
     keep_out = keep & (ro >= -0.5) & (ro < ch - 0.5) & (co >= -0.5) & (co < cw - 0.5)
     rows_o = _round_to_int32(ro) + cfg.h_pad
     cols_o = _round_to_int32(co) + cfg.w_pad
-    vals = torch.cat([depth[..., None], points[..., :4],
-                      labels[..., None].float()], dim=-1)
 
     # RGB: the crop window, its start clamped into the canvas as
     # lax.dynamic_slice does, padded, and zeroed beyond the true image
@@ -128,7 +209,50 @@ def view_geometry(points, labels, valid, proj_matrix, image, img_h, img_w,
     inb = ((yg >= 0) & (yg[None] + top[:, None] < img_h[:, None]))[:, :, None] & \
         ((xg >= 0) & (xg[None] + left[:, None] < img_w[:, None]))[:, None, :]
     rgb = torch.where(inb[..., None], rgb, 0.0)
-    return rows_o, cols_o, keep_out, depth, vals, rgb
+    return rows_o, cols_o, keep_out, rgb
+
+
+def _train_view(rows_f, cols_f, keep, image, img_h, img_w, cfg: PVConfig, aug: AugParams):
+    """Flip → rotate about the image centre → crop → pad, in the JAX
+    package's float32 arithmetic and order: the points' integer pixels
+    mapped forward, the RGB (ColorJitter first) resampled by the inverse map
+    at the nearest pixel."""
+    B = image.shape[0]
+    dev = image.device
+    ch, cw = cfg.train_crop
+    hf, wf = img_h.float()[:, None], img_w.float()[:, None]        # [B, 1]
+    cy, cx = (hf - 1.0) / 2.0, (wf - 1.0) / 2.0
+    theta = aug.theta.float()[:, None]
+    ct, st = torch.cos(theta), torch.sin(theta)
+    flip = aug.flip[:, None]
+    top, left = aug.top.float()[:, None], aug.left.float()[:, None]
+
+    pr, pc = torch.floor(rows_f), torch.floor(cols_f)
+    pc = torch.where(flip, wf - 1.0 - pc, pc)
+    dys, dxs = pr - cy, pc - cx
+    ro = cy + (-st * dxs + ct * dys) - top
+    co = cx + (ct * dxs + st * dys) - left
+    keep_out = keep & (ro >= -0.5) & (ro < ch - 0.5) & (co >= -0.5) & (co < cw - 0.5)
+    rows_o = _round_to_int32(ro) + cfg.h_pad
+    cols_o = _round_to_int32(co) + cfg.w_pad
+
+    if aug.jitter is not None:
+        image = color_jitter_fixed(image, img_h, img_w, *aug.jitter)
+    b3 = lambda t: t[:, :, None]                                   # [B, 1] → [B, 1, 1]
+    yg = (torch.arange(cfg.proj_ht, device=dev).float() - cfg.h_pad)[None, :, None]
+    xg = (torch.arange(cfg.proj_wt, device=dev).float() - cfg.w_pad)[None, None, :]
+    dyo, dxo = (yg + b3(top)) - b3(cy), (xg + b3(left)) - b3(cx)
+    src_c = b3(cx) + (b3(ct) * dxo - b3(st) * dyo)
+    src_r = b3(cy) + (b3(st) * dxo + b3(ct) * dyo)
+    src_c = torch.where(b3(flip), b3(wf) - 1.0 - src_c, src_c)
+    Hc, Wc = image.shape[1:3]
+    iy = _round_to_int32(src_r).clamp(0, Hc - 1).long()
+    ix = _round_to_int32(src_c).clamp(0, Wc - 1).long()
+    inb = ((yg >= 0) & (yg < ch) & (xg >= 0) & (xg < cw)
+           & (src_r >= -0.5) & (src_r < b3(hf) - 0.5)
+           & (src_c >= -0.5) & (src_c < b3(wf) - 0.5))
+    rgb = image[torch.arange(B, device=dev)[:, None, None], iy, ix]
+    return rows_o, cols_o, keep_out, torch.where(inb[..., None], rgb, 0.0)
 
 
 def normalize_feature(feature, mask, cfg: PVConfig):
@@ -140,28 +264,43 @@ def normalize_feature(feature, mask, cfg: PVConfig):
 
 
 def build_batch(points, labels, valid, proj_matrix, images, img_h, img_w,
-                cfg: PVConfig, train: bool = False):
-    """Batched eval preprocessing: project, crop, z-buffer, normalize.
+                cfg: PVConfig, train: bool = False, generator: torch.Generator | None = None,
+                aug_override: AugParams | None = None, return_points: bool = False):
+    """Batched preprocessing: project, augment (train) or centre-crop
+    (eval), z-buffer, normalize.
 
     Returns (feature [B, H, W, 8] normalized, mask [B, H, W] bool,
-    label [B, H, W] int32).
+    label [B, H, W] int32) at (proj_ht, proj_wt) in train mode and at
+    (proj_h, proj_w) at eval. The train view's parameters are drawn from
+    `generator`, or given by `aug_override`. With return_points a fourth
+    element (pt_pix [B, N] int32, pt_label [B, N] int32, pt_won [B, N] bool)
+    gives each point's flat pixel (H*W when not kept) and whether it won
+    that pixel, for the point-domain Lovász loss.
     """
-    if train:
-        raise NotImplementedError("the train view is not ported yet")
-    return _build_batch(points, labels, valid, proj_matrix, images, img_h, img_w,
-                        cfg, rasterize_zbuffer)
+    return _build_batch(points, labels, valid, proj_matrix, images, img_h, img_w, cfg,
+                        train, generator, aug_override, return_points)
 
 
 def _build_batch(points, labels, valid, proj_matrix, images, img_h, img_w,
-                 cfg: PVConfig, fill):
-    """`build_batch`'s eval view with the rasterizer `fill` (the K2 wrapper,
-    or its plain version where the two are compared)."""
+                 cfg: PVConfig, train: bool = False, generator=None, aug_override=None,
+                 return_points: bool = False, fill=rasterize_zbuffer, keys=zbuffer_keys):
+    """`build_batch` with the rasterizer `fill` and the key scatter-min
+    `keys` (the K2 and K1 wrappers, or their plain versions where the two
+    are compared)."""
+    aug = None
+    if train:
+        aug = aug_override if aug_override is not None else \
+            _affine_params(generator, img_h, img_w, cfg)
+    H, W = (cfg.proj_ht, cfg.proj_wt) if train else (cfg.proj_h, cfg.proj_w)
     rows, cols, keep, depth, vals, rgb = view_geometry(
-        points, labels, valid, proj_matrix, images, img_h, img_w, cfg)
-    canvas, mask = fill(rows, cols, depth, keep, vals, cfg.proj_h, cfg.proj_w)
+        points, labels, valid, proj_matrix, images, img_h, img_w, cfg, aug)
+    canvas, mask = fill(rows, cols, depth, keep, vals, H, W)
     lab = torch.round(canvas[..., 5]).to(torch.int32)
-    feature = torch.cat([canvas[..., :5], rgb], dim=-1)
-    return normalize_feature(feature, mask, cfg), mask, lab
+    feature = normalize_feature(torch.cat([canvas[..., :5], rgb], dim=-1), mask, cfg)
+    if not return_points:
+        return feature, mask, lab
+    pix, won = point_winner_flags(rows, cols, depth, keep, H, W, keys=keys)
+    return feature, mask, lab, (pix, labels.to(torch.int32), won)
 
 
 def build_eval_sample_with_uproj(points, labels, valid, proj_matrix, image,

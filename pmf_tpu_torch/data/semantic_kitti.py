@@ -1,7 +1,8 @@
 """SemanticKITTI dataset adapter (counterpart of
 `pmf_tpu/data/semantic_kitti.py`): file discovery per sequence, .bin/.label
-decoding (semantic = low 16 bits), the calib P2·Tr projection matrix, and
-the learning-map LUTs from the class-map YAML. Host-side numpy only.
+decoding (semantic = low 16 bits), the calib P2·Tr projection matrix, the
+learning-map LUTs and the per-class content frequencies from the class-map
+YAML. Host-side numpy only.
 """
 from __future__ import annotations
 
@@ -69,6 +70,11 @@ class SemanticKitti:
         self.class_map_lut_inv = _build_lut(cfg["learning_map_inv"])
         self.mapped_cls_name = cfg.get("mapped_class_name", {})
         self.learning_ignore = cfg.get("learning_ignore", {})
+        # per-train-class content frequency, summed over the raw classes
+        content = np.zeros((len(cfg["learning_map_inv"]),), dtype=np.float32)
+        for cl, freq in cfg["content"].items():
+            content[self.class_map_lut[cl]] += freq
+        self.cls_freq = content
 
     @staticmethod
     def readPCD(path: str) -> np.ndarray:

@@ -48,6 +48,11 @@ class IOUEval:
                                 None if valid is None else as_t(valid))
         self.conf += conf.cpu().numpy().astype(np.float64)
 
+    def addBatchConf(self, conf):
+        """Add a [C, C] confusion matrix (a tensor on any device, or an array)."""
+        conf = conf.cpu().numpy() if torch.is_tensor(conf) else np.asarray(conf)
+        self.conf += conf.astype(np.float64)
+
     def _stats(self):
         conf = self.conf.copy()
         if self.ignore:

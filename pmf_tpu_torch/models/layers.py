@@ -1,9 +1,8 @@
-"""Shared NN building blocks (counterpart of `pmf_tpu/models/layers.py`,
-eval semantics).
+"""Shared NN building blocks (counterpart of `pmf_tpu/models/layers.py`).
 
 Parameters stay float32 whatever the compute dtype; a conv casts its weights
-to the dtype of its input, and eval-mode BatchNorm computes its coefficients
-in float32 before applying them in that dtype, as the JAX package does.
+to the dtype of its input, and BatchNorm computes its coefficients in float32
+before applying them in that dtype, as the JAX package does.
 """
 from __future__ import annotations
 
@@ -13,7 +12,9 @@ from torch import nn
 
 
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:
-    """LeakyReLU(0.01) as max(x, 0.01x)."""
+    """LeakyReLU(0.01) as max(x, 0.01x). Its subgradient at x == 0 is 0.505
+    (torch.maximum splits a tie's gradient in halves), the same as the JAX
+    package's; F.leaky_relu would give 1."""
     return torch.maximum(x, x * 0.01)
 
 
@@ -26,8 +27,16 @@ class Conv2d(nn.Conv2d):
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """BatchNorm2d with torch's hyperparameters (eps 1e-5, momentum 0.1).
-    At eval it is y = x·a + b with a = γ/√(σ²+ε), b = β − μ·a."""
+    """BatchNorm2d with torch's hyperparameters (eps 1e-5, momentum 0.1),
+    applied as y = x·a + b in the input's dtype with a = γ/√(σ²+ε) and
+    b = β − μ·a computed in float32.
+
+    At eval μ and σ² are the running statistics. In train mode they are the
+    batch's, in float32 (float64 for a float64 input) from the input as it
+    is: μ = E[x] and the biased σ² = E[x²] − E[x]², with the gradient
+    flowing through both, and the running statistics move by 0.1 towards
+    them (pmf_tpu's _DenseBatchNorm; nn.BatchNorm2d would update the running
+    variance with the unbiased one)."""
 
     def fold(self):
         """The eval coefficients (a, b), float32."""
@@ -35,15 +44,46 @@ class BatchNorm2d(nn.BatchNorm2d):
         return a, self.bias - self.running_mean * a
 
     def forward(self, x):
-        if self.training:
-            return super().forward(x)
-        a, b = self.fold()
+        if not self.training:
+            a, b = self.fold()
+        else:
+            xf = x.to(torch.promote_types(x.dtype, torch.float32))
+            mean = xf.mean(dim=(0, 2, 3))
+            var = (xf * xf).mean(dim=(0, 2, 3)) - mean * mean
+            with torch.no_grad():
+                m = 1.0 - self.momentum
+                self.running_mean.copy_(m * self.running_mean + self.momentum * mean)
+                self.running_var.copy_(m * self.running_var + self.momentum * var)
+            a = torch.rsqrt(var + self.eps) * self.weight
+            b = self.bias - mean * a
         return x * a.to(x.dtype)[:, None, None] + b.to(x.dtype)[:, None, None]
+
+
+class Dropout2d(nn.Module):
+    """Channel dropout (torch's Dropout2d, pmf_tpu's Dropout2d): in train
+    mode each (sample, channel) plane is zeroed with probability p and the
+    rest scaled by 1/(1−p). The mask comes from the `generator` the caller
+    passes, never from the global RNG; a train-mode call with p > 0 and no
+    generator raises. p = 0 is the identity."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x, generator: torch.Generator | None = None):
+        if not self.training or self.p == 0:
+            return x
+        if generator is None:
+            raise ValueError("train-mode dropout needs a torch.Generator")
+        keep = torch.rand(x.shape[:2] + (1, 1), generator=generator,
+                          device=x.device) >= self.p
+        return torch.where(keep, x / (1.0 - self.p), 0.0)
 
 
 def conv_bn(x, conv: nn.Conv2d, bn: BatchNorm2d, act=None):
     """conv → BN [→ act], with the BN folded into the conv at eval:
-    BN(conv_k(x) + c) == conv_{k·a}(x) + (c·a + b)."""
+    BN(conv_k(x) + c) == conv_{k·a}(x) + (c·a + b). In train mode the
+    batch statistics need the conv's output, so the chain runs unfolded."""
     if bn.training:
         y = bn(conv(x))
     else:

@@ -92,21 +92,22 @@ class SalsaNextFusion(nn.Module):
         self.upBlock4 = UpBlock(2 * bc, 2 * bc, bc, p, drop_out=False)
         self.logits = Conv2d(bc, nclasses, 1)
 
-    def forward(self, x, img_features):
+    def forward(self, x, img_features, generator=None):
+        g = generator
         c = self.downCntx3(self.downCntx2(self.downCntx(x)))
-        down0c, down0b = self.resBlock1(c)
+        down0c, down0b = self.resBlock1(c, g)
         down0c = self.fusionblock_1(down0c, img_features[0])
-        down1c, down1b = self.resBlock2(down0c)
+        down1c, down1b = self.resBlock2(down0c, g)
         down1c = self.fusionblock_2(down1c, img_features[1])
-        down2c, down2b = self.resBlock3(down1c)
+        down2c, down2b = self.resBlock3(down1c, g)
         down2c = self.fusionblock_3(down2c, img_features[2])
-        down3c, down3b = self.resBlock4(down2c)
+        down3c, down3b = self.resBlock4(down2c, g)
         down3c = self.fusionblock_4(down3c, img_features[3])
-        down5c = self.aspp(self.resBlock5(down3c))
-        up = self.upBlock1(down5c, down3b)
-        up = self.upBlock2(up, down2b)
-        up = self.upBlock3(up, down1b)
-        up = self.upBlock4(up, down0b)
+        down5c = self.aspp(self.resBlock5(down3c, g))
+        up = self.upBlock1(down5c, down3b, g)
+        up = self.upBlock2(up, down2b, g)
+        up = self.upBlock3(up, down1b, g)
+        up = self.upBlock4(up, down0b, g)
         return torch.softmax(self.logits(up).float(), dim=1)
 
 
@@ -141,7 +142,9 @@ class PMFNet(nn.Module):
     (lidar_probs, camera_probs), each [N, H, W, nclasses] float32.
 
     `dtype` is the compute dtype (float32 or bfloat16); parameters and BN
-    statistics stay float32.
+    statistics stay float32. In train mode the channel dropout draws its
+    masks from `generator`, which forward then needs unless dropout_rate is
+    0.
     """
 
     def __init__(self, nclasses: int = 20, base_channels: int = 32,
@@ -156,10 +159,20 @@ class PMFNet(nn.Module):
         self.lidar_stream = SalsaNextFusion(chans, nclasses, base_channels,
                                             dropout_rate=dropout_rate)
 
-    def forward(self, pcd_feature, img_feature):
+    def forward(self, pcd_feature, img_feature, generator=None):
         pcd = pcd_feature.permute(0, 3, 1, 2).to(self.dtype)
         img = img_feature.permute(0, 3, 1, 2).to(self.dtype)
-        img_feats = self.camera_stream_encoder(img)
-        lidar = self.lidar_stream(pcd, img_feats)
+        img_feats = self.camera_stream_encoder(img, generator)
+        lidar = self.lidar_stream(pcd, img_feats, generator)
         camera = self.camera_stream_decoder(img_feats)
         return lidar.permute(0, 2, 3, 1), camera.permute(0, 2, 3, 1)
+
+
+def build_model(opts) -> PMFNet:
+    """The PMFNet of an experiment's Options (nclasses, base_channels,
+    img_backbone, compute_dtype), its weights at torch's initialization."""
+    if opts.net_type != "PMFNet":
+        raise NotImplementedError(f"{opts.net_type} is not ported yet")
+    dtype = torch.bfloat16 if opts.compute_dtype == "bfloat16" else torch.float32
+    return PMFNet(nclasses=opts.nclasses, base_channels=opts.base_channels,
+                  image_backbone=opts.img_backbone, dtype=dtype)

@@ -2,17 +2,18 @@
 
 torchvision's ResNet with the PMF changes: the 7×7 stem conv has stride 1
 (only the max pool downsamples before layer1), and channel dropout follows
-layer3 and layer4. Module names are torchvision's (conv1, bn1,
-layer{s}.{i}.conv{j}, layer{s}.{i}.downsample.{0,1}), so torchvision and
-reference checkpoints load as they are. Works on NCHW and returns the four
-stage outputs (strides 2, 4, 8, 16).
+layer3 and layer4, its mask drawn from the generator that forward takes.
+Module names are torchvision's (conv1, bn1, layer{s}.{i}.conv{j},
+layer{s}.{i}.downsample.{0,1}), so torchvision and reference checkpoints
+load as they are. Works on NCHW and returns the four stage outputs (strides
+2, 4, 8, 16).
 """
 from __future__ import annotations
 
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import BatchNorm2d, Conv2d, conv_bn, max_pool_3x3_s2
+from .layers import BatchNorm2d, Conv2d, Dropout2d, conv_bn, max_pool_3x3_s2
 
 STAGES = {
     "resnet34": ([3, 4, 6, 3], "basic"),
@@ -89,9 +90,9 @@ class ResNetEncoder(nn.Module):
                 layers.append(block(cin, width, stride, ds))
                 cin = width * block.expansion
             setattr(self, f"layer{stage + 1}", nn.Sequential(*layers))
-        self.dropout = nn.Dropout2d(dropout_rate)
+        self.dropout = Dropout2d(dropout_rate)
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         if x.shape[2] % 16 or x.shape[3] % 16:
             raise ValueError(f"invalid input size: {tuple(x.shape)}")
         out = max_pool_3x3_s2(conv_bn(x, self.conv1, self.bn1, F.relu))
@@ -99,6 +100,6 @@ class ResNetEncoder(nn.Module):
         for layer in (self.layer1, self.layer2, self.layer3, self.layer4):
             out = layer(out)
             feats.append(out)
-        feats[2] = self.dropout(feats[2])
-        feats[3] = self.dropout(feats[3])
+        feats[2] = self.dropout(feats[2], generator)
+        feats[3] = self.dropout(feats[3], generator)
         return feats

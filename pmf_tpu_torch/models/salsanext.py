@@ -3,6 +3,7 @@
 
 The blocks apply conv → LeakyReLU → BatchNorm, in that order (the reference
 puts the activation before the norm), so these BNs do not fold into a conv.
+Channel dropout draws its masks from the generator that forward takes.
 """
 from __future__ import annotations
 
@@ -10,7 +11,7 @@ import torch
 from torch import nn
 
 from ..ops.resize import pixel_shuffle
-from .layers import BatchNorm2d, Conv2d, avg_pool_3x3_s2, leaky_relu
+from .layers import BatchNorm2d, Conv2d, Dropout2d, avg_pool_3x3_s2, leaky_relu
 
 
 class ResContextBlock(nn.Module):
@@ -47,16 +48,16 @@ class ResBlock(nn.Module):
         self.bn3 = BatchNorm2d(cout)
         self.conv5 = Conv2d(3 * cout, cout, 1)
         self.bn4 = BatchNorm2d(cout)
-        self.dropout = nn.Dropout2d(dropout_rate) if drop_out else nn.Identity()
+        self.dropout = Dropout2d(dropout_rate if drop_out else 0.0)
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         shortcut = leaky_relu(self.conv1(x))
         resA1 = self.bn1(leaky_relu(self.conv2(x)))
         resA2 = self.bn2(leaky_relu(self.conv3(resA1)))
         resA3 = self.bn3(leaky_relu(self.conv4(resA2)))
         resA = self.bn4(leaky_relu(self.conv5(torch.cat([resA1, resA2, resA3], 1))))
         resA = shortcut + resA
-        resB = self.dropout(resA)
+        resB = self.dropout(resA, generator)
         if self.pooling:
             return avg_pool_3x3_s2(resB), resA
         return resB
@@ -68,8 +69,8 @@ class UpBlock(nn.Module):
     def __init__(self, cin: int, cskip: int, cout: int,
                  dropout_rate: float = 0.2, drop_out: bool = True):
         super().__init__()
-        drop = (lambda: nn.Dropout2d(dropout_rate)) if drop_out else nn.Identity
-        self.dropout1, self.dropout2, self.dropout3 = drop(), drop(), drop()
+        p = dropout_rate if drop_out else 0.0
+        self.dropout1, self.dropout2, self.dropout3 = Dropout2d(p), Dropout2d(p), Dropout2d(p)
         self.conv1 = Conv2d(cin // 4 + cskip, cout, 3, padding=1)
         self.bn1 = BatchNorm2d(cout)
         self.conv2 = Conv2d(cout, cout, 3, padding=2, dilation=2)
@@ -79,19 +80,20 @@ class UpBlock(nn.Module):
         self.conv4 = Conv2d(3 * cout, cout, 1)
         self.bn4 = BatchNorm2d(cout)
 
-    def forward(self, x, skip):
-        upA = self.dropout1(pixel_shuffle(x, 2))
-        upB = self.dropout2(torch.cat([upA, skip], 1))
+    def forward(self, x, skip, generator=None):
+        upA = self.dropout1(pixel_shuffle(x, 2), generator)
+        upB = self.dropout2(torch.cat([upA, skip], 1), generator)
         upE1 = self.bn1(leaky_relu(self.conv1(upB)))
         upE2 = self.bn2(leaky_relu(self.conv2(upE1)))
         upE3 = self.bn3(leaky_relu(self.conv3(upE2)))
         upE = self.bn4(leaky_relu(self.conv4(torch.cat([upE1, upE2, upE3], 1))))
-        return self.dropout3(upE)
+        return self.dropout3(upE, generator)
 
 
 class SalsaNext(nn.Module):
     """LiDAR-only SalsaNext: forward(x [N, H, W, C_in]) → per-pixel class
-    probabilities [N, H, W, nclasses] (or logits with softmax=False)."""
+    probabilities [N, H, W, nclasses] (or logits with softmax=False); a
+    train-mode forward with dropout takes a torch.Generator."""
 
     def __init__(self, nclasses: int = 20, base_channels: int = 32,
                  in_channels: int = 5, softmax: bool = True,
@@ -113,18 +115,19 @@ class SalsaNext(nn.Module):
         self.upBlock4 = UpBlock(2 * bc, 2 * bc, bc, p, drop_out=False)
         self.logits = Conv2d(bc, nclasses, 1)
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
+        g = generator
         c = x.permute(0, 3, 1, 2).to(self.dtype)
         c = self.downCntx3(self.downCntx2(self.downCntx(c)))
-        down0c, down0b = self.resBlock1(c)
-        down1c, down1b = self.resBlock2(down0c)
-        down2c, down2b = self.resBlock3(down1c)
-        down3c, down3b = self.resBlock4(down2c)
-        down5c = self.resBlock5(down3c)
-        up = self.upBlock1(down5c, down3b)
-        up = self.upBlock2(up, down2b)
-        up = self.upBlock3(up, down1b)
-        up = self.upBlock4(up, down0b)
+        down0c, down0b = self.resBlock1(c, g)
+        down1c, down1b = self.resBlock2(down0c, g)
+        down2c, down2b = self.resBlock3(down1c, g)
+        down3c, down3b = self.resBlock4(down2c, g)
+        down5c = self.resBlock5(down3c, g)
+        up = self.upBlock1(down5c, down3b, g)
+        up = self.upBlock2(up, down2b, g)
+        up = self.upBlock3(up, down1b, g)
+        up = self.upBlock4(up, down0b, g)
         logits = self.logits(up).float()
         out = torch.softmax(logits, dim=1) if self.softmax else logits
         return out.permute(0, 2, 3, 1)

@@ -4,7 +4,8 @@ Counterpart of `pmf_tpu/ops/scatter.py`. The nearest point wins each pixel
 and the lowest point index wins ties, through one scatter-min of packed
 int32 keys (quantized depth << nbits | index). On CUDA the key image comes
 from the K1 kernel (`ops/zbuffer.py`); the fill is a plain gather of the
-winners' rows.
+winners' rows. `point_winner_flags` gives the train path's per-point winner
+flags, and `rasterize_unique` places per-point rows back on the canvas.
 """
 from __future__ import annotations
 
@@ -51,13 +52,33 @@ def zbuffer_scatter_packed(rows, cols, depth, keep, H: int, W: int,
 
 
 def point_winner_flags(rows, cols, depth, keep, H: int, W: int,
-                       depth_quant: float = 1.0 / 64.0):
-    """Per point (flat pixel id in [0, H*W], H*W for invalid; did it win its
-    pixel), by the same packed-key z-test as `zbuffer_scatter_packed`."""
+                       depth_quant: float = 1.0 / 64.0, keys=zbuffer_keys):
+    """Per point of a batch of scans (rows/cols/depth/keep [B, N]): its flat
+    pixel id in [0, H*W] (H*W for points not kept) and whether it won its
+    pixel, by the same packed-key z-test as `zbuffer_scatter_packed`. The
+    key image of the whole batch is one call of `keys` (the K1 wrapper, or
+    its plain version where the two are compared)."""
     pix, key, _ = packed_keys(rows, cols, depth, keep, H, W, depth_quant)
-    key_img = zbuffer_keys(pix[None].contiguous(), key[None].contiguous(), H, W)
-    flat = torch.cat([key_img.reshape(-1), key_img.new_full((1,), IMAX)])
-    return pix, keep & (flat[pix.long()] == key)
+    key_img = keys(pix.contiguous(), key.contiguous(), H, W)
+    flat = torch.cat([key_img.reshape(pix.shape[0], -1),
+                      key_img.new_full((pix.shape[0], 1), IMAX)], dim=1)
+    return pix, keep & (flat.gather(1, pix.long()) == key)
+
+
+def rasterize_unique(pix, ok, values, H: int, W: int):
+    """Place the rows of `values` [B, N, F] at their flat pixels `pix`
+    [B, N] where `ok` [B, N], whose pixels are unique within a scan (z-buffer
+    winners): (canvas [B, H, W, F] float32, zeros elsewhere; mask [B, H, W]).
+    The JAX version sorts and places tiles; with unique pixels a plain
+    scatter is the same function."""
+    B, N, F = values.shape
+    b = torch.arange(B, device=pix.device)[:, None].expand(B, N)[ok]
+    p = pix[ok].long()
+    canvas = values.new_zeros((B, H * W, F), dtype=torch.float32)
+    mask = torch.zeros((B, H * W), dtype=torch.bool, device=pix.device)
+    canvas[b, p] = values[ok].float()
+    mask[b, p] = True
+    return canvas.reshape(B, H, W, F), mask.reshape(B, H, W)
 
 
 def fill_canvas(values: torch.Tensor, winner: torch.Tensor, mask: torch.Tensor,

@@ -26,38 +26,16 @@ import torch
 
 from ..config import Options, load_options
 from ..data import (
-    PVConfig, SemanticKitti, build_eval_sample_with_uproj, kitti_sample_reader,
-    point_depth,
+    SemanticKitti, build_eval_sample_with_uproj, kitti_sample_reader, point_depth,
+    pv_config,
 )
 from ..metrics import IOUEval
-from ..models import PMFNet, load_weights
+from ..models import PMFNet, build_model, load_weights
 from ..ops import argmax_last, knn_postprocess
 from ..utils import resolve_device
 from ..utils.tables import latex_row, matrix_report, per_class_report
 
 log = logging.getLogger(__name__)
-
-
-def pv_config(opts: Options) -> PVConfig:
-    sensor = opts.group("sensor")
-    return PVConfig(
-        canvas_h=int(sensor.get("canvas_h", 384)),
-        canvas_w=int(sensor.get("canvas_w", 1248)),
-        proj_h=int(sensor.get("proj_h", 384)),
-        proj_w=int(sensor.get("proj_w", 1232)),
-        h_pad=int(sensor.get("h_pad", 7)),
-        w_pad=int(sensor.get("w_pad", 3)),
-        n_points=int(sensor.get("n_points", 131072)),
-        img_mean=tuple(sensor.get("img_mean", PVConfig.img_mean)),
-        img_stds=tuple(sensor.get("img_stds", PVConfig.img_stds)))
-
-
-def build_model(opts: Options, device: torch.device) -> PMFNet:
-    if opts.net_type != "PMFNet":
-        raise NotImplementedError(f"{opts.net_type} is not ported yet")
-    dtype = torch.bfloat16 if opts.compute_dtype == "bfloat16" else torch.float32
-    return PMFNet(nclasses=opts.nclasses, base_channels=opts.base_channels,
-                  image_backbone=opts.img_backbone, dtype=dtype).to(device).eval()
 
 
 class Inference:
@@ -90,7 +68,7 @@ class Inference:
         """The CLI's loop: SemanticKITTI sequence 08 under `opts.data_root`
         and the model weights at `weights`."""
         dataset = SemanticKitti(opts.data_root, [8])
-        model = build_model(opts, device)
+        model = build_model(opts).to(device).eval()
         load_weights(model, weights)
         ignore = [cl for cl, ig in dataset.learning_ignore.items() if ig] or [0]
         return cls(opts, model, kitti_sample_reader(dataset, pv_config(opts)),

@@ -1,1 +1,2 @@
 from .device import resolve_device
+from .meters import AverageMeter, RemainTime

@@ -171,3 +171,66 @@ def test_kernels_replay_in_cuda_graph(cuda_device):
         torch.cuda.synchronize()
         eager = both()
         assert all(torch.equal(o, e) for o, e in zip(outs, eager))
+
+
+def _train_cfg(h, w, th, tw, n):
+    from pmf_tpu_torch.data import PVConfig
+
+    return PVConfig(canvas_h=h, canvas_w=w + 16, proj_h=h, proj_w=w, proj_ht=th, proj_wt=tw,
+                    h_pad=2, w_pad=2, n_points=n, img_jitter=(0.4, 0.4, 0.4))
+
+
+@pytest.mark.cuda
+def test_train_view_kernels_match_plain(cuda_device):
+    """The train view with return_points through K2 and K1 equals the same
+    view with the plain fills, with the augmentation drawn from a CUDA
+    generator (both calls from the same seed)."""
+    from pmf_tpu_torch.data import build_batch
+    from pmf_tpu_torch.data.perspective_pipeline import _build_batch
+    from pmf_tpu_torch.data.synthetic import make_inputs
+
+    B, N, H, W = 4, 16384, 128, 416
+    cfg = _train_cfg(H, W, 96, 320, N)
+    batch = [torch.from_numpy(a).to(cuda_device) for a in make_inputs(np.random.default_rng(11), B, N, H, W)]
+    gen = lambda: torch.Generator(device=cuda_device).manual_seed(12)
+    before = (trast.rasterize_zbuffer.launches, tzbuf.zbuffer_keys.launches)
+    got = build_batch(*batch, cfg, train=True, generator=gen(), return_points=True)
+    torch.cuda.synchronize()
+    assert (trast.rasterize_zbuffer.launches, tzbuf.zbuffer_keys.launches) == \
+        (before[0] + 1, before[1] + 1)
+    want = _build_batch(*batch, cfg, True, gen(), None, True,
+                        fill=trast.rasterize_zbuffer_plain, keys=tzbuf.zbuffer_keys_plain)
+    for a, b in zip((*got[:3], *got[3]), (*want[:3], *want[3])):
+        assert torch.equal(a, b)
+    assert got[1].sum() > 1000
+
+
+@pytest.mark.cuda
+def test_bf16_train_step_small(cuda_device):
+    """One bf16 train step of a small PMFNet on the card: finite losses,
+    most parameters moved, confusion matrices over every pixel, both kernels
+    launched by the view."""
+    from pmf_tpu_torch.data import build_batch
+    from pmf_tpu_torch.data.synthetic import make_inputs
+    from pmf_tpu_torch.models import PMFNet, random_weights
+    from pmf_tpu_torch.train import HybridOptimizer, LossConfig, make_pmf_train_step
+
+    B, N, H, W = 2, 4096, 64, 160
+    cfg = _train_cfg(H, W, 48, 96, N)
+    batch = [torch.from_numpy(a).to(cuda_device) for a in make_inputs(np.random.default_rng(13), B, N, H, W)]
+    g = torch.Generator(device=cuda_device).manual_seed(14)
+    model = random_weights(PMFNet(nclasses=20, base_channels=8, dtype=torch.bfloat16), seed=15)
+    model = model.to(cuda_device)
+    before = {k: p.detach().clone() for k, p in model.named_parameters()}
+    step = make_pmf_train_step(model, HybridOptimizer(model, lambda s: 1e-3, 0.9, 1e-5),
+                               LossConfig(alpha=tuple([0.0] + [1.0] * 19)))
+    launches = (trast.rasterize_zbuffer.launches, tzbuf.zbuffer_keys.launches)
+    f, _, label, points = build_batch(*batch, cfg, train=True, generator=g, return_points=True)
+    aux = step(f, label, g, points)
+    torch.cuda.synchronize()
+    assert trast.rasterize_zbuffer.launches > launches[0]
+    assert tzbuf.zbuffer_keys.launches > launches[1]
+    assert all(torch.isfinite(v).all() for v in aux.values())
+    assert aux["conf"].sum() == aux["conf_cam"].sum() == B * 48 * 96
+    moved = [not torch.equal(before[k], p) for k, p in model.named_parameters()]
+    assert sum(moved) > len(moved) // 2

@@ -107,10 +107,11 @@ def test_scatter_path_matches_jax(N):
     jc = jscatter.fill_canvas(j["vals"], j["rows"], j["cols"], j["keep"], jw, jm)
     np.testing.assert_array_equal(canvas.numpy(), np.asarray(jc))
 
-    pix, won = tscatter.point_winner_flags(t["rows"], t["cols"], t["depth"], t["keep"], H, W)
+    pix, won = tscatter.point_winner_flags(*(t[k][None] for k in ("rows", "cols", "depth", "keep")),
+                                           H, W)
     jpix, jwon = jscatter.point_winner_flags(j["rows"], j["cols"], j["depth"], j["keep"], H, W)
-    np.testing.assert_array_equal(pix.numpy(), np.asarray(jpix))
-    np.testing.assert_array_equal(won.numpy(), np.asarray(jwon))
+    np.testing.assert_array_equal(pix.numpy(), np.asarray(jpix)[None])
+    np.testing.assert_array_equal(won.numpy(), np.asarray(jwon)[None])
     assert won.sum() == mask.sum()
 
 
