@@ -37,7 +37,22 @@ Phases, each of which ends the run with a non-zero exit on failure:
      labelled pixels and both kernels launched; prints ms/step, scans/s,
      the split of one step into view/forward/loss/backward/optimizer (CUDA
      events) and the peak device memory. The kernels' launch counts over
-     (c) are `launches_train` in the kernel line.
+     (c) are `launches_train` in the kernel line;
+  7. EPMF (configs/experiments/epmf_kitti.yaml: the V2 view at 320x1280,
+     131072 points a scan): (a) K2 on its 64-bit-key branch at the EPMF
+     eval batch (8 scans, forced ties) and K1 on one EPMF scan (17 index
+     bits), each held to its plain version exactly and timed as in phase 3;
+     (b) EPMFNet in float32 on the card against the CPU at 2x64x128 (base 8),
+     as phase 4, and one float32 EPMF train step with the multi-task loss,
+     as phase 6(b); (c) batched EPMF-ResNet34 eval at full width (base 32,
+     bf16, batch 8): build_v2_batch → EPMFNet → argmax, the kernel fill
+     equal to the plain fill, one scan through Inference.run's EPMF branch
+     with KNN, both kernels launched (their counts read around this phase
+     alone: `launches_epmf`), scans/s; (d) the EPMF Trainer at full width
+     (bf16, train batch 2 and validation batch 4 at 320x1280, multi-task
+     loss, image-domain Lovász as the config sets), 2 warm-up and 8 timed
+     steps and one validation pass, checked as (6c) and σ trained; ms/step,
+     the step split, the peak memory (`launches_epmf_train`).
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Without a CUDA card the script exits 1 and
@@ -56,6 +71,8 @@ import torch
 
 H, W, B, N, F = 384, 1232, 8, 32768, 6
 TH, TW = 256, 1024          # the train view (bench.py:67, pmf_kitti.yaml proj_ht/proj_wt)
+HE, WE, NE = 320, 1280, 131072  # EPMF's V2 view and point buffer (epmf_kitti.yaml PVconfig)
+BT, BV = 2, 4               # EPMF's train and validation batches (epmf_kitti.yaml batch_size)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 
@@ -162,9 +179,9 @@ def bound_ms(n_bytes: float, n_ops: float):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def force_ties(rows, cols, depth, keep, seed: int):
+def force_ties(rows, cols, depth, keep, seed: int, h: int = H):
     """Copy some points onto other points' pixel and depth (equal dq at a
-    higher or lower index), drop some, and push some off the image."""
+    higher or lower index), drop some, and push some off the h-row image."""
     rng = np.random.default_rng(seed)
     rows, cols, depth, keep = (t.clone() for t in (rows, cols, depth, keep))
     n = rows.shape[1]
@@ -173,7 +190,7 @@ def force_ties(rows, cols, depth, keep, seed: int):
     for t in (rows, cols, depth, keep):
         t.scatter_(1, dst, t.gather(1, src))
     keep[:, :100] = False
-    rows[:, 100:120] = H + 5
+    rows[:, 100:120] = h + 5
     cols[:, 120:140] = -3
     return rows, cols, depth, keep
 
@@ -205,12 +222,12 @@ def random_points(dev, seed: int, b: int, n: int, pixels: int = 0):
     return rows, cols, depth, keep, values
 
 
-def hold_rasterize(label: str, rows, cols, depth, keep, values):
-    """K2 on these points, held to its plain version bit for bit; returns
-    the max abs error."""
+def hold_rasterize(label: str, rows, cols, depth, keep, values, h: int = H, w: int = W):
+    """K2 on these points into an h x w image, held to its plain version bit
+    for bit; returns the max abs error."""
     from pmf_tpu_torch.ops import rasterize
 
-    args = (rows, cols, depth, keep, values, H, W)
+    args = (rows, cols, depth, keep, values, h, w)
     canvas, mask = rasterize.rasterize_zbuffer(*args)
     torch.cuda.synchronize()
     want_c, want_m = rasterize.rasterize_zbuffer_plain(*args)
@@ -219,26 +236,91 @@ def hold_rasterize(label: str, rows, cols, depth, keep, values):
              f"{(mask != want_m).sum().item()} mask bits, "
              f"{(canvas != want_c).sum().item()} canvas values")
     b, n = rows.shape
-    print(f"[kernels] rasterize_zbuffer == plain ({label}) at B={b} N={n} {H}x{W} "
+    print(f"[kernels] rasterize_zbuffer == plain ({label}) at B={b} N={n} {h}x{w} "
           f"F={values.shape[-1]}: {int(mask.sum())} occupied pixels")
     return (canvas - want_c).abs().max().item()
 
 
-def hold_keys(label: str, pix, key):
-    """K1 on these keys, held to its plain version bit for bit; returns the
-    max abs error."""
+def hold_keys(label: str, pix, key, h: int = H, w: int = W):
+    """K1 on these keys into an h x w image, held to its plain version bit
+    for bit; returns the max abs error."""
     from pmf_tpu_torch.ops import zbuffer
 
-    got = zbuffer.zbuffer_keys(pix, key, H, W)
+    got = zbuffer.zbuffer_keys(pix, key, h, w)
     torch.cuda.synchronize()
-    want = zbuffer.zbuffer_keys_plain(pix, key, H, W)
+    want = zbuffer.zbuffer_keys_plain(pix, key, h, w)
     if not torch.equal(got, want):
         fail(f"zbuffer_keys differs from its plain version ({label}): "
              f"{(got != want).sum().item()} pixels")
     b, n = pix.shape
-    print(f"[kernels] zbuffer_keys == plain ({label}) at B={b} N={n} {H}x{W}: "
+    print(f"[kernels] zbuffer_keys == plain ({label}) at B={b} N={n} {h}x{w}: "
           f"{int((got != zbuffer.IMAX).sum())} occupied pixels")
     return float((got.long() - want.long()).abs().max().item())
+
+
+def rasterize_numbers(rows, cols, depth, keep, vals, h: int, w: int) -> dict:
+    """K2's times on these inputs (host-inclusive and on the device), its
+    plain version's and the library call's (`scatter_reduce_` "amin" of the
+    64-bit (dq << 32) | index keys, then a gather of the winners' rows,
+    checked to compute the same function), and its bound."""
+    from pmf_tpu_torch.ops import rasterize
+
+    b, n = rows.shape
+    dev = rows.device
+    args = (rows, cols, depth, keep, vals, h, w)
+    pix64 = torch.where(keep, rows.clamp(0, h - 1).long() * w + cols.clamp(0, w - 1).long(), h * w)
+    idx = torch.arange(n, device=dev)
+
+    def library_rasterize():
+        dq = (depth / (1 / 64)).clamp(0, 65535).long()
+        best = torch.full((b, h * w + 1), 2**63 - 1, dtype=torch.int64, device=dev)
+        best.scatter_reduce_(1, pix64, (dq << 32) | idx, "amin")
+        hit = best[:, :h * w] != 2**63 - 1
+        win = (best[:, :h * w] & 0xFFFFFFFF).clamp(max=n - 1)
+        rows_ = vals.gather(1, win[..., None].expand(-1, -1, F))
+        return torch.where(hit[..., None], rows_, 0.0), hit
+
+    lib_c, lib_m = library_rasterize()
+    want_c, want_m = rasterize.rasterize_zbuffer_plain(*args)
+    if not (torch.equal(lib_c.reshape(want_c.shape), want_c)
+            and torch.equal(lib_m.reshape(want_m.shape), want_m)):
+        fail("the library yardstick for rasterize_zbuffer computes another function")
+    bnd, by = bound_ms(b * n * (4 + 4 + 4 + 1 + 4 * F) + b * h * w * (4 * F + 1),
+                       int(keep.sum()) + b * h * w * F)
+    return {"ms": time_ms(lambda: rasterize.rasterize_zbuffer(*args)),
+            "device_ms": device_ms(lambda: rasterize.rasterize_zbuffer(*args)),
+            "plain_ms": time_ms(lambda: rasterize.rasterize_zbuffer_plain(*args), iters=5),
+            "bound_ms": bnd, "bound_by": by, "library_ms": time_ms(library_rasterize)}
+
+
+def keys_numbers(pix, key, h: int, w: int, kept: int):
+    """K1's times on one scan's keys, its plain version's and the library
+    call's (`full` + `scatter_reduce_` "amin", checked to compute the same
+    function), and its bound; and the library call itself."""
+    from pmf_tpu_torch.ops import zbuffer
+
+    pix64 = pix.long()
+
+    def library_keys():
+        out = torch.full((1, h * w + 1), zbuffer.IMAX, dtype=torch.int32, device=pix.device)
+        return out.scatter_reduce_(1, pix64, key, "amin")
+
+    if not torch.equal(library_keys()[:, :h * w].reshape(1, h, w),
+                       zbuffer.zbuffer_keys_plain(pix, key, h, w)):
+        fail("the library yardstick for zbuffer_keys computes another function")
+    bnd, by = bound_ms(pix.shape[1] * 8 + h * w * 4, kept)
+    return {"ms": time_ms(lambda: zbuffer.zbuffer_keys(pix, key, h, w)),
+            "device_ms": device_ms(lambda: zbuffer.zbuffer_keys(pix, key, h, w)),
+            "plain_ms": time_ms(lambda: zbuffer.zbuffer_keys_plain(pix, key, h, w)),
+            "bound_ms": bnd, "bound_by": by, "library_ms": time_ms(library_keys)}, library_keys
+
+
+def print_numbers(name: str, e: dict, smi: str, prefix: str = ""):
+    p = lambda k: e[prefix + k]
+    print(f"[timing] {name}{' (' + prefix.rstrip('_') + ')' if prefix else ''}: ms "
+          f"{p('ms'):.5g} (host-inclusive), device_ms {p('device_ms'):.5g} (CUDA graph), "
+          f"bound {p('bound_ms'):.5g} ({p('bound_by')}), plain {p('plain_ms'):.5g}, library "
+          f"{p('library_ms'):.5g} on {smi}")
 
 
 def check_kernels(dev, cfg, batch, smi):
@@ -263,37 +345,11 @@ def check_kernels(dev, cfg, batch, smi):
     hold_rasterize("every point dropped", rows[:2], cols[:2], depth[:2],
                    torch.zeros_like(keep[:2]), vals[:2])
     args = (rows, cols, depth, keep, vals, H, W)
-
-    pix64 = torch.where(keep, rows.clamp(0, H - 1).long() * W + cols.clamp(0, W - 1).long(), H * W)
-    idx = torch.arange(N, device=dev)
-
-    def library_rasterize():
-        dq = (depth / (1 / 64)).clamp(0, 65535).long()
-        best = torch.full((B, H * W + 1), 2**63 - 1, dtype=torch.int64, device=dev)
-        best.scatter_reduce_(1, pix64, (dq << 32) | idx, "amin")
-        hit = best[:, :H * W] != 2**63 - 1
-        win = (best[:, :H * W] & 0xFFFFFFFF).clamp(max=N - 1)
-        rows_ = vals.gather(1, win[..., None].expand(-1, -1, F))
-        return torch.where(hit[..., None], rows_, 0.0), hit
-
-    lib_c, lib_m = library_rasterize()
-    want_c, want_m = rasterize.rasterize_zbuffer_plain(*args)
-    if not (torch.equal(lib_c.reshape(want_c.shape), want_c)
-            and torch.equal(lib_m.reshape(want_m.shape), want_m)):
-        fail("the library yardstick for rasterize_zbuffer computes another function")
-    kept = int(keep.sum())
-    bnd, by = bound_ms(B * N * (4 + 4 + 4 + 1 + 4 * F) + B * H * W * (4 * F + 1),
-                       kept + B * H * W * F)
     entries.append({
         "name": "rasterize_zbuffer", "route": "cuda",
         "source": "pmf_tpu_torch/csrc/rasterize.cu",
         "replaces": "pmf_tpu/ops/pallas/tile_fill.py:148",
-        "max_abs_err": err,
-        "ms": time_ms(lambda: rasterize.rasterize_zbuffer(*args)),
-        "device_ms": device_ms(lambda: rasterize.rasterize_zbuffer(*args)),
-        "plain_ms": time_ms(lambda: rasterize.rasterize_zbuffer_plain(*args), iters=5),
-        "bound_ms": bnd, "bound_by": by,
-        "library_ms": time_ms(library_rasterize),
+        "max_abs_err": err, **rasterize_numbers(*args),
     })
 
     # K1 at the per-scan path's shapes (one scan), once for the batch, and
@@ -308,31 +364,15 @@ def check_kernels(dev, cfg, batch, smi):
     hold_keys("every point dropped",
               *packed_keys(rows[:2], cols[:2], depth[:2], torch.zeros_like(keep[:2]),
                            H, W, 1 / 64)[:2])
-    p1_64 = p1.long()
-
-    def library_keys():
-        out = torch.full((1, H * W + 1), zbuffer.IMAX, dtype=torch.int32, device=dev)
-        return out.scatter_reduce_(1, p1_64, k1, "amin")
-
-    if not torch.equal(library_keys()[:, :H * W].reshape(1, H, W), zbuffer.zbuffer_keys_plain(p1, k1, H, W)):
-        fail("the library yardstick for zbuffer_keys computes another function")
-    bnd, by = bound_ms(N * 8 + H * W * 4, int(keep[0].sum()))
+    numbers, library_keys = keys_numbers(p1, k1, H, W, int(keep[0].sum()))
     entries.append({
         "name": "zbuffer_keys", "route": "cuda",
         "source": "pmf_tpu_torch/csrc/zbuffer_keys.cu",
         "replaces": "pmf_tpu/ops/pallas/zbuffer.py:45",
-        "max_abs_err": err,
-        "ms": time_ms(lambda: zbuffer.zbuffer_keys(p1, k1, H, W)),
-        "device_ms": device_ms(lambda: zbuffer.zbuffer_keys(p1, k1, H, W)),
-        "plain_ms": time_ms(lambda: zbuffer.zbuffer_keys_plain(p1, k1, H, W)),
-        "bound_ms": bnd, "bound_by": by,
-        "library_ms": time_ms(library_keys),
+        "max_abs_err": err, **numbers,
     })
     for e in entries:
-        print(f"[timing] {e['name']}: ms {e['ms']:.5g} (host-inclusive), device_ms "
-              f"{e['device_ms']:.5g} (CUDA graph), bound {e['bound_ms']:.5g} "
-              f"({e['bound_by']}), plain {e['plain_ms']:.5g}, library "
-              f"{e['library_ms']:.5g} on {smi}")
+        print_numbers(e["name"], e, smi)
 
     trace("rasterize_zbuffer", lambda: rasterize.rasterize_zbuffer(*args), smi)
     trace("zbuffer_keys", lambda: zbuffer.zbuffer_keys(p1, k1, H, W), smi)
@@ -359,40 +399,48 @@ def check_reference(dev):
     from pmf_tpu_torch.data import PVConfig, build_batch
     from pmf_tpu_torch.data.synthetic import make_inputs
     from pmf_tpu_torch.models import PMFNet, random_weights
-    from pmf_tpu_torch.ops import argmax_last
 
     h, w = 64, 160
     torch.manual_seed(6)
     cfg = PVConfig(canvas_h=h, canvas_w=w + 16, proj_h=h, proj_w=w, n_points=2048)
     raw = make_inputs(np.random.default_rng(5), 2, 2048, h, w)
     model = random_weights(PMFNet(nclasses=20, base_channels=8), seed=6)
+    hold_card_to_cpu(dev, "[reference]", build_batch, cfg, raw, model, (h, w))
+
+
+def hold_card_to_cpu(dev, tag: str, build, cfg, raw, model, size):
+    """`build` (the batched eval view) and `model` on the card against the
+    same on the CPU, held as `check_reference` says."""
+    from pmf_tpu_torch.ops import argmax_last
+
     outs = []
     for d in (torch.device("cpu"), dev):
         m = model.to(d)
         with torch.inference_mode():
-            f, mask, lab = build_batch(*(torch.from_numpy(a).to(d) for a in raw), cfg)
+            f, mask, lab = build(*(torch.from_numpy(a).to(d) for a in raw), cfg)
             lidar, cam = m(f[..., :5], f[..., 5:8])
         outs.append([t.cpu() for t in (f, mask, lab, lidar, cam, argmax_last(lidar))])
     (f0, m0, l0, p0, c0, a0), (f1, m1, l1, p1, c1, a1) = outs
     f_err = (f0 - f1).abs().max().item()
     f_ulp = ulp(f0.abs().max())
     if f_err > 4 * f_ulp or not (torch.equal(m0, m1) and torch.equal(l0, l1)):
-        fail(f"the card's mask or labels differ from the CPU's, or its features "
+        fail(f"{tag} the card's mask or labels differ from the CPU's, or its features "
              f"by {f_err} (tolerance 4 ulp = {4 * f_ulp})")
     err = max((p0 - p1).abs().max().item(), (c0 - c1).abs().max().item())
     top2 = p0.topk(2, dim=-1).values
     clear = top2[..., 0] - top2[..., 1] > 1e-4
     n_classes = a0.unique().numel()
     if err > 1e-4 or not torch.equal(a0[clear], a1[clear]):
-        fail(f"float32 probabilities on the card differ from the CPU's by {err}")
+        fail(f"{tag} float32 probabilities on the card differ from the CPU's by {err}")
     if clear.float().mean() <= 0.9 or n_classes < 2:
-        fail(f"the reference run cannot tell forwards apart: top-2 margin > 1e-4 at "
+        fail(f"{tag} the reference run cannot tell forwards apart: top-2 margin > 1e-4 at "
              f"{clear.float().mean().item():.3f} of the pixels, {n_classes} classes")
-    print(f"[reference] card vs CPU at 2x{h}x{w}: mask/labels exact, features max "
-          f"abs diff {f_err:.3g} = {f_err / f_ulp:.2f} ulp of the largest feature "
-          f"{f0.abs().max().item():.4g} (tolerance 4 ulp), probabilities max abs diff "
-          f"{err:.3g} (tolerance 1e-4); argmax margin > 1e-4 at "
-          f"{clear.float().mean().item():.4f} of the pixels, {n_classes} classes")
+    print(f"{tag} card vs CPU at {len(raw[0])}x{size[0]}x{size[1]}: mask/labels exact "
+          f"({int(m0.sum())} occupied pixels), features max abs diff {f_err:.3g} = "
+          f"{f_err / f_ulp:.2f} ulp of the largest feature {f0.abs().max().item():.4g} "
+          f"(tolerance 4 ulp), probabilities max abs diff {err:.3g} (tolerance 1e-4); argmax "
+          f"margin > 1e-4 at {clear.float().mean().item():.4f} of the pixels, {n_classes} "
+          f"classes")
 
 
 def main_path(dev, cfg, batch, raw, smi):
@@ -400,8 +448,6 @@ def main_path(dev, cfg, batch, raw, smi):
     from pmf_tpu_torch.data import build_batch
     from pmf_tpu_torch.data.perspective_pipeline import _build_batch
     from pmf_tpu_torch.models import PMFNet, random_weights
-    from pmf_tpu_torch.ops import argmax_last, rasterize, zbuffer
-    from pmf_tpu_torch.tools.infer_kitti import Inference
 
     torch.manual_seed(0)
     model = random_weights(PMFNet(nclasses=20, base_channels=32, image_backbone="resnet34",
@@ -411,12 +457,26 @@ def main_path(dev, cfg, batch, raw, smi):
     opts = Options(nclasses=20, base_channels=32, compute_dtype="bfloat16",
                    config={"sensor": sensor, "post": {"KNN": {"params": {
                        "knn": 5, "search": 5, "sigma": 1.0, "cutoff": 1.0}}}})
+    return eval_path(dev, "[main]", "build_batch+PMFNet+argmax", model, opts, build_batch,
+                     _build_batch, cfg, batch, raw, (H, W), smi)
+
+
+def eval_path(dev, tag, name, model, opts, build, build_with_fill, cfg, batch, raw, size, smi):
+    """Batched eval (`build` → `model` → argmax) and one scan through the
+    Inference.run loop (KNN on), with both kernels' launch counts read
+    around them; the batched path against the same with the plain fill; its
+    scans/s. Returns the launch counts."""
+    from pmf_tpu_torch.ops import argmax_last, rasterize, zbuffer
+    from pmf_tpu_torch.tools.infer_kitti import Inference
+
+    b = len(raw[0])
+    h, w = size
     scan = {k: a[0] for k, a in zip(
         ("points", "labels", "valid", "proj_matrix", "image", "img_h", "img_w"), raw)}
     inference = Inference(opts, model, lambda i: scan, 1, dev, ignore=[0], use_knn=True)
 
     def batched(c):
-        f, m, lab = build_batch(*batch, c)
+        f, m, lab = build(*batch, c)
         lidar, _ = model(f[..., :5], f[..., 5:8])
         return f, m, lab, lidar, argmax_last(lidar)
 
@@ -428,30 +488,32 @@ def main_path(dev, cfg, batch, raw, smi):
     torch.cuda.synchronize()
     launches = {"zbuffer_keys": zbuffer.zbuffer_keys.launches,
                 "rasterize_zbuffer": rasterize.rasterize_zbuffer.launches}
-    print(f"[main] launches on the main path: {json.dumps(launches)}")
+    print(f"{tag} launches on the main path: {json.dumps(launches)}")
     if min(launches.values()) == 0:
-        fail(f"a kernel of the main path was not launched: {launches}")
+        fail(f"{tag} a kernel of the main path was not launched: {launches}")
 
-    if lidar.shape != (B, H, W, 20) or not torch.isfinite(lidar).all():
-        fail(f"lidar probabilities: shape {tuple(lidar.shape)}, finite {bool(torch.isfinite(lidar).all())}")
-    if not torch.isfinite(f).all() or f.shape != (B, H, W, 8):
-        fail("features are not finite or have the wrong shape")
+    if lidar.shape != (b, h, w, 20) or not torch.isfinite(lidar).all():
+        fail(f"{tag} lidar probabilities: shape {tuple(lidar.shape)}, finite "
+             f"{bool(torch.isfinite(lidar).all())}")
+    if not torch.isfinite(f).all() or f.shape != (b, h, w, 8):
+        fail(f"{tag} features are not finite or have the wrong shape")
     if int(pred.min()) < 0 or int(pred.max()) >= 20 or int(lab.min()) < 0 or int(lab.max()) >= 20:
-        fail("labels out of range")
+        fail(f"{tag} labels out of range")
     n_classes = pred.unique().numel()
     if n_classes < 2:
-        fail("the batched path predicts one class everywhere")
+        fail(f"{tag} the batched path predicts one class everywhere")
     if not all(np.isfinite(v) for t in ("pixel", "point") for v in report[t].values()):
-        fail(f"Inference.run report is not finite: {report}")
-    print(f"[main] batched: {int(m.sum())} occupied pixels, {n_classes} classes "
+        fail(f"{tag} Inference.run report is not finite: {report}")
+    print(f"{tag} batched: {int(m.sum())} occupied pixels, {n_classes} classes "
           f"predicted ({int(pred.min())}..{int(pred.max())}); one scan through Inference.run: "
           f"point mIoU {report['point']['mIoU']:.4f}, pixel mIoU {report['pixel']['mIoU']:.4f}")
 
     with torch.inference_mode():
-        plain = _build_batch(*batch, cfg, fill=rasterize.rasterize_zbuffer_plain)
-        if not all(torch.equal(a, b) for a, b in zip((f, m, lab), plain)):
-            fail("the batched path gives other features, mask or labels with the plain fill")
-        print("[main] batched path: kernel fill == plain fill (features, mask, labels)")
+        plain = build_with_fill(*batch, cfg, fill=rasterize.rasterize_zbuffer_plain)
+        if not all(torch.equal(x, y) for x, y in zip((f, m, lab), plain)):
+            fail(f"{tag} the batched path gives other features, mask or labels with the "
+                 "plain fill")
+        print(f"{tag} batched path: kernel fill == plain fill (features, mask, labels)")
 
         for _ in range(2):
             batched(cfg)
@@ -462,9 +524,10 @@ def main_path(dev, cfg, batch, raw, smi):
             batched(cfg)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
+        profile_step(lambda: batched(cfg), smi, name=f"eval batch ({name})")
     med = statistics.median(times)
-    print(f"[main] batched eval build_batch+PMFNet+argmax, batch {B}, {H}x{W}, bf16: "
-          f"{B / med:.2f} scans/s (median of {len(times)} batches: {med * 1e3:.2f} ms, "
+    print(f"{tag} batched eval {name}, batch {b}, {h}x{w}, bf16: "
+          f"{b / med:.2f} scans/s (median of {len(times)} batches: {med * 1e3:.2f} ms, "
           f"min {min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}) on {smi}")
     return launches
 
@@ -515,17 +578,21 @@ def check_train_view(dev, batch):
           f"pt_won); {int(m.sum())} occupied pixels, {labelled} labelled = labelled winners")
 
 
-def train_step_run(model, dev, batch):
-    """One train step (make_pmf_train_step, hybrid optimizer) of `model` on
-    `batch` moved to `dev`: (aux, gradients by name, BN running statistics)."""
+def train_step_run(model, dev, batch, mt_sigma=None):
+    """One train step (make_pmf_train_step, hybrid optimizer; with
+    `mt_sigma` the multi-task loss, σ in the AdamW group) of `model` on
+    `batch` moved to `dev`: (aux, gradients by name, BN running
+    statistics)."""
     from pmf_tpu_torch.train import HybridOptimizer, LossConfig, make_pmf_train_step
 
-    feature, label, points = (t.to(dev) if torch.is_tensor(t) else tuple(x.to(dev) for x in t)
-                              for t in batch)
-    opt = HybridOptimizer(model, lambda step: 1e-3, 0.9, 1e-5)
-    cfg = LossConfig(alpha=tuple([0.0] + [1.0] * 19))
-    aux = make_pmf_train_step(model, opt, cfg)(feature, label, None, points)
+    feature, label, points = (t.to(dev) if torch.is_tensor(t) else
+                              None if t is None else tuple(x.to(dev) for x in t) for t in batch)
+    extra = [] if mt_sigma is None else [torch.nn.Parameter(mt_sigma.to(dev, copy=True))]
+    opt = HybridOptimizer(model, lambda step: 1e-3, 0.9, 1e-5, extra=extra)
+    cfg = LossConfig(alpha=tuple([0.0] + [1.0] * 19), use_mtloss=bool(extra))
+    aux = make_pmf_train_step(model, opt, cfg, *extra)(feature, label, None, points)
     grads = {k: p.grad.detach().double().cpu() for k, p in model.named_parameters()}
+    grads.update({"mt_sigma": p.grad.detach().double().cpu() for p in extra})
     stats = {k: v.detach().cpu() for k, v in model.state_dict().items() if "running" in k}
     return {k: v.cpu() for k, v in aux.items()}, grads, stats
 
@@ -559,46 +626,61 @@ def check_train_reference(dev):
     f, _, lab, pts = build_batch(*map(torch.from_numpy, raw), cfg, train=True,
                                  aug_override=fixed_aug(2, "cpu", top=4, left=20),
                                  return_points=True)
-    batch = (f, lab, pts)
     model = random_weights(PMFNet(nclasses=20, base_channels=8, dropout_rate=0.0), seed=9)
+    hold_train_step(dev, "[train] (b) f32 train step card vs CPU at 2x48x96, base 8",
+                    model, (f, lab, pts))
+
+
+def hold_train_step(dev, tag, model, batch, mt_sigma=None, stats_in_float64=False):
+    """One train step of `model` on `batch` on the card against the CPU,
+    held as `check_train_reference` says; with `stats_in_float64` the BN
+    statistics are held in the float64 step too (the float32 ones printed)."""
     model64 = copy.deepcopy(model).double()
     model64.dtype = torch.float64
+    sigma64 = None if mt_sigma is None else mt_sigma.double()
     cpu = torch.device("cpu")
-    aux_c, g_c, s_c = train_step_run(copy.deepcopy(model), cpu, batch)
-    aux_d, g_d, s_d = train_step_run(copy.deepcopy(model).to(dev), dev, batch)
-    _, g64_c, _ = train_step_run(copy.deepcopy(model64), cpu, batch)
-    _, g64_d, _ = train_step_run(copy.deepcopy(model64).to(dev), dev, batch)
+    aux_c, g_c, s_c = train_step_run(copy.deepcopy(model), cpu, batch, mt_sigma)
+    aux_d, g_d, s_d = train_step_run(copy.deepcopy(model).to(dev), dev, batch, mt_sigma)
+    _, g64_c, s64_c = train_step_run(copy.deepcopy(model64), cpu, batch, sigma64)
+    _, g64_d, s64_d = train_step_run(copy.deepcopy(model64).to(dev), dev, batch, sigma64)
 
     loss_err = max(abs(aux_d[k].item() - aux_c[k].item()) / abs(aux_c[k].item())
                    for k in aux_c if k not in ("conf", "conf_cam"))
-    stat_err = max(((s_d[k] - s_c[k]).norm() / s_c[k].norm()).item() for k in s_c)
-    if loss_err > 1e-4 or stat_err > 1e-5:
-        fail(f"train step: losses differ by {loss_err:.3g} relative (tolerance 1e-4), BN "
-             f"statistics by {stat_err:.3g} (tolerance 1e-5)")
+    stat_diff = lambda a, b: max(((a[k] - b[k]).norm() / b[k].norm()).item() for k in b)
+    stat_err, stat_err64 = stat_diff(s_d, s_c), stat_diff(s64_d, s64_c)
+    worst_stat = max(s_c, key=lambda k: ((s_d[k] - s_c[k]).norm() / s_c[k].norm()).item())
+    held = stat_err64 if stats_in_float64 else stat_err
+    if loss_err > 1e-4 or held > 1e-5:
+        fail(f"{tag}: losses differ by {loss_err:.3g} relative (tolerance 1e-4), BN "
+             f"statistics by {stat_err:.3g} in float32 and {stat_err64:.3g} in float64 "
+             f"(tolerance 1e-5{' in float64' if stats_in_float64 else ''})")
     worst = 0.0
     for k, g in g64_c.items():
         err, norm = (g64_d[k] - g).norm().item(), g.norm().item()
         worst = max(worst, err / (1e-3 * norm + 1e-7))
         if err > 1e-3 * norm + 1e-7:
-            fail(f"float64 train step gradient {k}: card vs CPU {err:.3g}, norm {norm:.3g}")
+            fail(f"{tag}: float64 gradient {k}: card vs CPU {err:.3g}, norm {norm:.3g}")
     e64, e32 = grad_errors(g64_c, g64_d), grad_errors(g_c, g_d)
-    print(f"[train] (b) f32 train step card vs CPU at 2x48x96, base 8: losses max rel diff "
-          f"{loss_err:.3g} (tol 1e-4), BN running stats max diff {stat_err:.3g} of each "
-          f"tensor's norm (tol 1e-5); the same step in float64: {len(e64)} gradients within "
-          f"1e-3 of their norm + 1e-7 (the worst at {worst:.3g} of that), median |dg|/|g| "
-          f"{e64[len(e64) // 2]:.3g}; the float32 gradients for comparison: median |dg|/|g| "
-          f"{e32[len(e32) // 2]:.3g}, max {e32[-1]:.3g}")
+    stats = (f"float32 {stat_err:.3g} (at {worst_stat}), float64 {stat_err64:.3g} (tol 1e-5 "
+             "in float64)" if stats_in_float64 else f"{stat_err:.3g} (tol 1e-5)")
+    print(f"{tag}: losses max rel diff {loss_err:.3g} (tol 1e-4), BN running stats max diff "
+          f"of each tensor's norm {stats}; the same step in float64: "
+          f"{len(e64)} gradients within 1e-3 of their norm + 1e-7 (the worst at {worst:.3g} "
+          f"of that), median |dg|/|g| {e64[len(e64) // 2]:.3g}; the float32 gradients for "
+          f"comparison: median |dg|/|g| {e32[len(e32) // 2]:.3g}, max {e32[-1]:.3g}")
 
 
-def profile_step(step, smi, top: int = 12):
-    """torch.profiler over one trainer step (host batch → view → step): the
-    device's busy time against the step's wall time, and the PyTorch
-    operations whose own kernels take the most device time."""
+def profile_step(step, smi, top: int = 12, name: str = "train step"):
+    """torch.profiler over one call of `step` (a trainer step: host batch →
+    view → step; or an eval batch): the device's busy time against the
+    call's wall time, the PyTorch operations whose own kernels take the
+    most device time, and the convolutions that do, by input shape."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
@@ -608,10 +690,16 @@ def profile_step(step, smi, top: int = 12):
     ops = sorted(((e.self_device_time_total / 1e3, e.count, e.key) for e in events
                   if e.device_type == DeviceType.CPU and e.self_device_time_total > 0),
                  reverse=True)
-    print(f"[trace] train step: device busy {busy:.2f} ms of {wall_ms:.2f} ms wall (profiled) "
+    print(f"[trace] {name}: device busy {busy:.2f} ms of {wall_ms:.2f} ms wall (profiled) "
           f"on {smi}; the operations whose kernels take the most device time:")
     for t, n, k in ops[:top]:
         print(f"[trace]   device {t:9.3f} ms  x{n:<5d} {k}")
+    convs = sorted(((e.self_device_time_total / 1e3, e.count, e.key, e.input_shapes)
+                    for e in prof.key_averages(group_by_input_shape=True)
+                    if e.device_type == DeviceType.CPU and e.key.startswith("aten::cudnn_conv")),
+                   key=lambda c: c[0], reverse=True)
+    for t, n, k, shapes in convs[:5]:
+        print(f"[trace]   conv   {t:9.3f} ms  x{n:<5d} {k} input, weight {shapes[:2]}")
 
 
 def scan_reader(raw, n_pool: int):
@@ -624,23 +712,37 @@ def full_width_train(dev, smi):
     """(c): the Trainer at full width; returns the kernels' launch counts
     over its train and validation runs."""
     from pmf_tpu_torch.config import Options
-    from pmf_tpu_torch.data import build_batch
     from pmf_tpu_torch.data.synthetic import make_inputs
-    from pmf_tpu_torch.models import build_model, random_weights
-    from pmf_tpu_torch.ops import rasterize, zbuffer
-    from pmf_tpu_torch.train import Trainer, pmf_losses
-    from pmf_tpu_torch.train.trainer import batches
 
     sensor = {"canvas_h": H, "canvas_w": W + 16, "proj_h": H, "proj_w": W, "proj_ht": TH,
               "proj_wt": TW, "h_pad": 7, "w_pad": 3, "n_points": N}
     opts = Options(config={"sensor": sensor, "augmentation": {"img_jitter": [0.4, 0.4, 0.4]}},
                    compute_dtype="bfloat16", batch_size=(B, B), n_epochs=5, warmup_epochs=1)
     raw = make_inputs(np.random.default_rng(3), 2 * B, N, H, W)
-    reader = scan_reader(raw, 2 * B)
+    return train_path(dev, smi, "[train] (c)", "PMF-ResNet34", opts, raw, (TH, TW), (H, W),
+                      ("rasterize_zbuffer", "zbuffer_keys"))
+
+
+def train_path(dev, smi, tag, net, opts, raw, size_train, size_val, kernels_of_path):
+    """The Trainer of `opts` on the in-memory scans `raw` (2 train batches
+    an epoch, 1 validation batch): 2 warm-up and 8 timed steps, one
+    validation pass, the checks of (6c) (and σ trained, with the
+    multi-task loss), a step split by CUDA events and a profiled step.
+    Returns the kernels' launch counts over the train and validation runs;
+    each of `kernels_of_path` must have been launched."""
+    from pmf_tpu_torch.models import build_model, random_weights
+    from pmf_tpu_torch.ops import rasterize, zbuffer
+    from pmf_tpu_torch.train import Trainer, pmf_losses
+    from pmf_tpu_torch.train.trainer import batches
+
+    bt, bv = opts.batch_size
+    (th, tw), (vh, vw) = size_train, size_val
+    reader = scan_reader(raw, 2 * bt)
     torch.manual_seed(0)
     model = random_weights(build_model(opts), seed=0).to(dev)
-    trainer = Trainer(opts, model, reader, 2 * B, reader, B, dev, [0.0] + [1.0] * 19)
+    trainer = Trainer(opts, model, reader, 2 * bt, reader, bv, dev, [0.0] + [1.0] * 19)
     before = {k: v.clone() for k, v in model.state_dict().items()}
+    sigma0 = None if trainer.mt_sigma is None else trainer.mt_sigma.detach().clone()
 
     torch.cuda.reset_peak_memory_stats()
     zbuffer.zbuffer_keys.launches = 0
@@ -662,36 +764,40 @@ def full_width_train(dev, smi):
 
     losses = [v for r in runs + [val] for k, v in r.items() if k.startswith(("loss", "Loss"))]
     if not all(np.isfinite(losses)) or len(losses) != 6 * len(runs + [val]):
-        fail(f"train path: non-finite or missing losses {runs + [val]}")
+        fail(f"{tag} train path: non-finite or missing losses {runs + [val]}")
     after = model.state_dict()
     params = [k for k, _ in model.named_parameters()]
     stats = [k for k in after if "running" in k]
     moved = sum(not torch.equal(before[k], after[k]) for k in params)
     moved_stats = sum(not torch.equal(before[k], after[k]) for k in stats)
     if moved < len(params) // 2 or moved_stats != len(stats):
-        fail(f"train path: {moved}/{len(params)} parameters and {moved_stats}/{len(stats)} BN "
-             "statistics changed")
-    if train_conf != (2 * B * TH * TW,) * 2 or val_conf != (B * H * W,) * 2:
-        fail(f"confusion matrices sum to {train_conf} (train) and {val_conf} (validation), "
-             f"not the {2 * B * TH * TW} and {B * H * W} labelled pixels")
-    if min(launches.values()) == 0:
-        fail(f"a kernel of the train path was not launched: {launches}")
+        fail(f"{tag} train path: {moved}/{len(params)} parameters and {moved_stats}/"
+             f"{len(stats)} BN statistics changed")
+    if sigma0 is not None and torch.equal(sigma0, trainer.mt_sigma.detach()):
+        fail(f"{tag} the multi-task sigma did not train")
+    if train_conf != (2 * bt * th * tw,) * 2 or val_conf != (bv * vh * vw,) * 2:
+        fail(f"{tag} confusion matrices sum to {train_conf} (train) and {val_conf} "
+             f"(validation), not the {2 * bt * th * tw} and {bv * vh * vw} labelled pixels")
+    if min(launches[k] for k in kernels_of_path) == 0:
+        fail(f"{tag} a kernel of the train path was not launched: {launches}")
 
     # one more step, split by CUDA events (the trainer's pieces, in its order)
-    x = [torch.from_numpy(a[:B]).to(dev) for a in raw]
+    x = [torch.from_numpy(a[:bt]).to(dev) for a in raw]
     g, opt = trainer.generator, trainer.optimizer
     splits = []
     for _ in range(3):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
         ev[0].record()
         with torch.no_grad():
-            f, _, lab, pts = build_batch(*x, trainer.pv_cfg, True, g, return_points=True)
+            f, _, lab, *pts = trainer.build(*x, trainer.pv_cfg, True, g,
+                                            return_points=trainer.point_lovasz)
         ev[1].record()
         model.train()
         opt.zero_grad()
         lidar, cam = model(f[..., :5], f[..., 5:8], g)
         ev[2].record()
-        total, _ = pmf_losses(lidar, cam, lab, trainer.loss_cfg, pts)
+        total, _ = pmf_losses(lidar, cam, lab, trainer.loss_cfg, pts[0] if pts else None,
+                              trainer.mt_sigma)
         ev[3].record()
         total.backward()
         ev[4].record()
@@ -701,21 +807,148 @@ def full_width_train(dev, smi):
         splits.append([ev[i].elapsed_time(ev[i + 1]) for i in range(5)])
     split = [statistics.median(c) for c in zip(*splits)]
     names = ("view", "forward", "loss", "backward", "optimizer")
-    profile_step(lambda: trainer._step(next(batches(reader, 2 * B, B, True)), True), smi)
-    print(f"[train] (c) Trainer, PMF-ResNet34 bf16, batch {B}, {TH}x{TW} crop, {N} points, "
-          f"point Lovász: {ms_step:.2f} ms/step = {B / ms_step * 1e3:.2f} train scans/s "
+    profile_step(lambda: trainer._step(next(batches(reader, 2 * bt, bt, True)), True), smi)
+    lovasz = "point" if trainer.point_lovasz else "image-domain"
+    print(f"{tag} Trainer, {net} bf16, batch {bt}, {th}x{tw} crop, {raw[0].shape[1]} points, "
+          f"{lovasz} Lovász{', multi-task loss' if sigma0 is not None else ''}: "
+          f"{ms_step:.2f} ms/step = {bt / ms_step * 1e3:.2f} train scans/s "
           f"(8 steps after 2 warm-up, host-inclusive) on {smi}")
-    print("[train] (c) one step split (CUDA events, median of 3): "
+    print(f"{tag} one step split (CUDA events, median of 3): "
           + ", ".join(f"{n} {t:.2f} ms" for n, t in zip(names, split))
           + f" = {sum(split):.2f} ms on {smi}")
-    print(f"[train] (c) peak device memory {peak / 2**30:.2f} GiB "
+    print(f"{tag} peak device memory {peak / 2**30:.2f} GiB "
           f"(torch.cuda.max_memory_allocated) on {smi}")
-    print(f"[train] (c) losses finite; {moved}/{len(params)} parameters and {moved_stats}/"
+    sigma = "" if sigma0 is None else \
+        f"; sigma {[round(v, 5) for v in trainer.mt_sigma.detach().cpu().tolist()]}"
+    print(f"{tag} losses finite; {moved}/{len(params)} parameters and {moved_stats}/"
           f"{len(stats)} BN statistics changed; confusion matrices sum to the labelled pixels "
           f"({train_conf[0]:.0f} train, {val_conf[0]:.0f} validation); last train loss "
-          f"{runs[-1]['Loss']:.4f}, validation mIoU {val['IOU']:.4f}")
-    print(f"[train] launches on the train path: {json.dumps(launches)}")
+          f"{runs[-1]['Loss']:.4f}, validation mIoU {val['IOU']:.4f}{sigma}")
+    print(f"{tag} launches on the train path: {json.dumps(launches)}")
     return launches
+
+
+def epmf_cfg():
+    from pmf_tpu_torch.data import V2Config
+
+    return V2Config(canvas_h=H, canvas_w=W + 16, proj_h=HE, proj_w=WE, proj_ht=HE, proj_wt=WE,
+                    n_points=NE, img_jitter=(0.4, 0.4, 0.4))
+
+
+def check_epmf_kernels(dev, cfg, batch, smi):
+    """7(a): K2 at the EPMF eval batch's own inputs (its 64-bit keys) and K1
+    at one EPMF scan's, each with forced ties, held to the plain versions
+    exactly and timed as in phase 3. Returns each kernel's numbers under
+    keys prefixed `epmf_`."""
+    from pmf_tpu_torch.data.perspective_pipeline_v2 import v2_view_geometry
+    from pmf_tpu_torch.ops.scatter import packed_keys
+
+    rows, cols, keep, depth, vals, _ = v2_view_geometry(*batch, cfg)
+    rows, cols, depth, keep = force_ties(rows, cols, depth, keep, seed=2, h=HE)
+    vals = vals.contiguous()
+    err = hold_rasterize("EPMF eval batch, 64-bit keys, forced ties", rows, cols, depth, keep,
+                         vals, HE, WE)
+    k2 = {"max_abs_err": err, **rasterize_numbers(rows, cols, depth, keep, vals, HE, WE)}
+    pix, key, nbits = packed_keys(rows[:1], cols[:1], depth[:1], keep[:1], HE, WE, 1 / 64)
+    p1, k1 = pix.contiguous(), key.contiguous()
+    err = hold_keys(f"EPMF per-scan path, {nbits} index bits", p1, k1, HE, WE)
+    k1_numbers = {"max_abs_err": err, **keys_numbers(p1, k1, HE, WE, int(keep[0].sum()))[0]}
+    out = {}
+    for name, numbers in (("rasterize_zbuffer", k2), ("zbuffer_keys", k1_numbers)):
+        out[name] = {"epmf_" + k: v for k, v in numbers.items()}
+        print_numbers(name, out[name], smi, "epmf_")
+    return out
+
+
+def check_epmf_reference(dev):
+    """7(b): EPMFNet in float32 on the card against the CPU at 2x64x128,
+    base 8, as phase 4 holds PMF (build_v2_batch through the kernels there,
+    the plain versions here); then one float32 EPMF train step with the
+    multi-task loss and the image-domain Lovász, as 6(b), but with the BN
+    statistics held in the float64 step: the deepest BN sees 8 pixels a
+    scan at 1/32 resolution, and its float32 variance E[x²] − E[x]²
+    cancels, so it moves in the fifth digit with the order of the sums
+    (tests/test_torch_epmf_train.py meets the same in pmf_tpu). The scans'
+    camera has fx = 60, so that their tight box is about the view's
+    size."""
+    from pmf_tpu_torch.data import V2AugParams, V2Config, build_v2_batch
+    from pmf_tpu_torch.data.synthetic import make_inputs
+    from pmf_tpu_torch.losses import init_multi_task_params
+    from pmf_tpu_torch.models import EPMFNet, random_weights
+
+    h, w = 64, 128
+    cfg = V2Config(canvas_h=h, canvas_w=w + 16, proj_h=h, proj_w=w, proj_ht=h, proj_wt=w,
+                   n_points=4096)
+    raw = make_inputs(np.random.default_rng(10), 2, 4096, h, w)
+    raw[3][:, 0, 1] = raw[3][:, 1, 2] = -60.0
+    torch.manual_seed(10)
+    model = random_weights(EPMFNet(nclasses=20, base_channels=8), seed=10)
+    hold_card_to_cpu(dev, "[epmf] (b)", build_v2_batch, cfg, raw, model, (h, w))
+
+    full = lambda v, dt: torch.full((2,), v, dtype=dt)
+    aug = V2AugParams(full(1.1, torch.float32), full(True, torch.bool),
+                      full(np.deg2rad(7.0), torch.float32), full(4, torch.int64),
+                      full(2, torch.int64), fixed_aug(2, "cpu").jitter)
+    f, _, lab = build_v2_batch(*map(torch.from_numpy, raw), cfg, train=True, aug_override=aug)
+    model = random_weights(EPMFNet(nclasses=20, base_channels=8, dropout_rate=0.0), seed=11)
+    sigma = init_multi_task_params(6) * torch.linspace(0.5, 2.0, 6)
+    hold_train_step(dev, "[epmf] (b) f32 EPMF train step (multi-task loss) card vs CPU at "
+                    "2x64x128, base 8", model, (f, lab, None), sigma, stats_in_float64=True)
+
+
+def check_tight_box(batch, cfg):
+    """The EPMF scans' tight box (the kept points' truncated pixels) against
+    the view: the box must be larger, so the eval view is a centre crop."""
+    from pmf_tpu_torch.ops.projection import yaw_crop_project
+
+    points, _, valid, proj = batch[:4]
+    rows, cols, keep = yaw_crop_project(points[..., :3], proj, cfg.fov_left, cfg.fov_right, valid)
+    extent = lambda v: (torch.where(keep, v.trunc(), -1e30).amax(1)
+                        - torch.where(keep, v.trunc(), 1e30).amin(1) + 1)
+    h, w = extent(rows), extent(cols)
+    if not ((h > cfg.proj_h) | (w > cfg.proj_w)).all():
+        fail(f"the EPMF scans' tight boxes ({h.tolist()} x {w.tolist()}) fit the view: no crop")
+    print(f"[epmf] tight box of the kept points: {int(h.min())}-{int(h.max())} x "
+          f"{int(w.min())}-{int(w.max())} px, {int(keep.sum(1).min())}-{int(keep.sum(1).max())} "
+          f"points kept of {points.shape[1]}: centre-cropped to {cfg.proj_h}x{cfg.proj_w}")
+
+
+def epmf_main_path(dev, cfg, batch, raw, smi):
+    """7(c): batched EPMF-ResNet34 eval and one scan of Inference.run's EPMF
+    branch, as phase 5."""
+    from pmf_tpu_torch.config import Options
+    from pmf_tpu_torch.data import build_v2_batch
+    from pmf_tpu_torch.data.perspective_pipeline_v2 import _build_v2_batch
+    from pmf_tpu_torch.models import EPMFNet, random_weights
+
+    torch.manual_seed(0)
+    model = random_weights(EPMFNet(nclasses=20, base_channels=32, image_backbone="resnet34",
+                                   dtype=torch.bfloat16), seed=0).to(dev)
+    pv = {"canvas_h": cfg.canvas_h, "canvas_w": cfg.canvas_w, "proj_h": HE, "proj_w": WE,
+          "n_points": NE}
+    opts = Options(net_type="EPMFNet", nclasses=20, base_channels=32, compute_dtype="bfloat16",
+                   config={"PVconfig": pv, "post": {"KNN": {"params": {
+                       "knn": 5, "search": 5, "sigma": 1.0, "cutoff": 1.0}}}})
+    return eval_path(dev, "[epmf] (c)", "build_v2_batch+EPMFNet+argmax", model, opts,
+                     build_v2_batch, _build_v2_batch, cfg, batch, raw, (HE, WE), smi)
+
+
+def epmf_train(dev, smi):
+    """7(d): the EPMF Trainer at full width (epmf_kitti.yaml: bf16, batch 2
+    for training and 4 for validation, multi-task loss, image-domain
+    Lovász)."""
+    from pmf_tpu_torch.config import Options
+    from pmf_tpu_torch.data.synthetic import make_inputs
+
+    pv = {"canvas_h": H, "canvas_w": W + 16, "proj_h": HE, "proj_w": WE, "proj_ht": HE,
+          "proj_wt": WE, "n_points": NE}
+    opts = Options(config={"PVconfig": pv, "augmentation": {"img_jitter": [0.4, 0.4, 0.4]},
+                           "use_mtloss": True, "point_lovasz": False},
+                   net_type="EPMFNet", compute_dtype="bfloat16", batch_size=(BT, BV),
+                   n_epochs=5, warmup_epochs=1)
+    raw = make_inputs(np.random.default_rng(4), 2 * BT, NE, H, W)
+    return train_path(dev, smi, "[epmf] (d)", "EPMF-ResNet34", opts, raw, (HE, WE), (HE, WE),
+                      ("rasterize_zbuffer",))
 
 
 def main():
@@ -753,11 +986,26 @@ def main():
     check_train_view(dev, batch)
     check_train_reference(dev)
     launches_train = full_width_train(dev, smi)
+    del batch
+
+    cfg_e = epmf_cfg()
+    raw_e = make_inputs(np.random.default_rng(1), B, NE, H, W)
+    batch_e = [torch.from_numpy(a).to(dev) for a in raw_e]
+    check_tight_box(batch_e, cfg_e)
+    epmf_numbers = check_epmf_kernels(dev, cfg_e, batch_e, smi)
+    check_epmf_reference(dev)
+    launches_epmf = epmf_main_path(dev, cfg_e, batch_e, raw_e, smi)
+    launches_epmf_train = epmf_train(dev, smi)
     for e in entries:
         e["launches"] = launches[e["name"]]
         e["launches_train"] = launches_train[e["name"]]
-    keys = ("name", "route", "source", "replaces", "launches", "launches_train", "max_abs_err",
-            "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+        e["launches_epmf"] = launches_epmf[e["name"]]
+        e["launches_epmf_train"] = launches_epmf_train[e["name"]]
+        e.update(epmf_numbers[e["name"]])
+    keys = ("name", "route", "source", "replaces", "launches", "launches_train", "launches_epmf",
+            "launches_epmf_train", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "epmf_max_abs_err", "epmf_ms", "epmf_device_ms",
+            "epmf_plain_ms", "epmf_bound_ms", "epmf_bound_by", "epmf_library_ms")
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

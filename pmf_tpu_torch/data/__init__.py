@@ -5,3 +5,7 @@ from .perspective_pipeline import (
     pad_image, pad_points, point_depth, pv_config,
 )
 from .semantic_kitti import SemanticKitti
+from .perspective_pipeline_v2 import (
+    V2AugParams, V2Config, build_v2_batch, build_v2_eval_sample_with_uproj, v2_config,
+    view_config,
+)

@@ -18,6 +18,7 @@ plain PyTorch version on the CPU.
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import NamedTuple
@@ -112,13 +113,17 @@ def point_depth(points: torch.Tensor) -> torch.Tensor:
     return torch.linalg.vector_norm(points[..., :3], dim=-1)
 
 
-def _round_to_int32(x: torch.Tensor) -> torch.Tensor:
-    """Round half to even and convert with XLA's saturating semantics: values
-    past the int32 range give its ends, NaN gives 0 (a plain `.to(int32)`
-    leaves them undefined)."""
-    r = torch.round(x)
+def saturating_int32(r: torch.Tensor) -> torch.Tensor:
+    """Integral floats to int32 with XLA's saturating semantics: values past
+    the int32 range give its ends, NaN gives 0 (a plain `.to(int32)` leaves
+    them undefined)."""
     out = torch.nan_to_num(r, nan=0.0).clamp(-2.0 ** 31, 2.0 ** 31 - 128).to(torch.int32)
     return torch.where(r >= 2.0 ** 31, 2 ** 31 - 1, out)
+
+
+def _round_to_int32(x: torch.Tensor) -> torch.Tensor:
+    """Round half to even, then `saturating_int32`."""
+    return saturating_int32(torch.round(x))
 
 
 class AugParams(NamedTuple):
@@ -255,10 +260,17 @@ def _train_view(rows_f, cols_f, keep, image, img_h, img_w, cfg: PVConfig, aug: A
     return rows_o, cols_o, keep_out, torch.where(inb[..., None], rgb, 0.0)
 
 
+@functools.lru_cache(maxsize=16)
+def _constant(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """`values` as a tensor on `device`, made once: later calls copy nothing
+    from the host, so a CUDA graph can capture them."""
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
 def normalize_feature(feature, mask, cfg: PVConfig):
     """(f[0:5] - mean) / std * mask on the lidar channels; RGB untouched."""
-    mean = torch.tensor(cfg.img_mean, dtype=feature.dtype, device=feature.device)
-    std = torch.tensor(cfg.img_stds, dtype=feature.dtype, device=feature.device)
+    mean = _constant(tuple(cfg.img_mean), feature.dtype, feature.device)
+    std = _constant(tuple(cfg.img_stds), feature.dtype, feature.device)
     lidar = (feature[..., :5] - mean) / std * mask[..., None].to(feature.dtype)
     return torch.cat([lidar, feature[..., 5:]], dim=-1)
 
@@ -292,8 +304,16 @@ def _build_batch(points, labels, valid, proj_matrix, images, img_h, img_w,
         aug = aug_override if aug_override is not None else \
             _affine_params(generator, img_h, img_w, cfg)
     H, W = (cfg.proj_ht, cfg.proj_wt) if train else (cfg.proj_h, cfg.proj_w)
-    rows, cols, keep, depth, vals, rgb = view_geometry(
-        points, labels, valid, proj_matrix, images, img_h, img_w, cfg, aug)
+    geometry = view_geometry(points, labels, valid, proj_matrix, images, img_h, img_w, cfg, aug)
+    return fill_view(geometry, labels, H, W, cfg, return_points, fill, keys)
+
+
+def fill_view(geometry, labels, H: int, W: int, cfg, return_points: bool = False,
+              fill=rasterize_zbuffer, keys=zbuffer_keys):
+    """A batch's view geometry (rows, cols, keep, depth, vals, rgb) filled by
+    `fill` into an H x W canvas, labelled and normalized: (feature, mask,
+    label[, (pt_pix, pt_label, pt_won)]) as `build_batch` returns them."""
+    rows, cols, keep, depth, vals, rgb = geometry
     canvas, mask = fill(rows, cols, depth, keep, vals, H, W)
     lab = torch.round(canvas[..., 5]).to(torch.int32)
     feature = normalize_feature(torch.cat([canvas[..., :5], rgb], dim=-1), mask, cfg)
@@ -303,6 +323,24 @@ def _build_batch(points, labels, valid, proj_matrix, images, img_h, img_w,
     return feature, mask, lab, (pix, labels.to(torch.int32), won)
 
 
+def scan_sizes(img_h, img_w, device):
+    """One scan's image size (ints or 0-d tensors) as [1] int32 tensors."""
+    size = lambda v: torch.as_tensor(v, dtype=torch.int32, device=device).reshape(1)
+    return size(img_h), size(img_w)
+
+
+def fill_scan(geometry, H: int, W: int, cfg):
+    """One scan's view geometry, without its batch dimension, filled by the
+    per-scan z-buffer (K1 and a gather): (feature [H, W, 8] normalized, mask,
+    label2d, rows, cols, keep, depth), the labels truncated."""
+    rows, cols, keep, depth, vals, rgb = geometry
+    winner, mask = zbuffer_scatter_packed(rows, cols, depth, keep, H, W)
+    canvas = fill_canvas(vals, winner, mask)
+    lab = canvas[..., 5].to(torch.int32)
+    feature = torch.cat([canvas[..., :5], rgb], dim=-1)
+    return normalize_feature(feature, mask, cfg), mask, lab, rows, cols, keep, depth
+
+
 def build_eval_sample_with_uproj(points, labels, valid, proj_matrix, image,
                                  img_h: int, img_w: int, cfg: PVConfig):
     """Single-scan eval path that keeps the per-point projection.
@@ -310,13 +348,6 @@ def build_eval_sample_with_uproj(points, labels, valid, proj_matrix, image,
     Returns (feature [H, W, 8] normalized, mask, label2d, rows, cols, keep,
     depth); rows/cols are the points' integer pixel coords in the view.
     """
-    size = lambda v: torch.as_tensor(v, dtype=torch.int32, device=points.device)[None]
-    rows, cols, keep, depth, vals, rgb = view_geometry(
-        points[None], labels[None], valid[None], proj_matrix[None], image[None],
-        size(img_h), size(img_w), cfg)
-    rows, cols, keep, depth, vals, rgb = (t[0] for t in (rows, cols, keep, depth, vals, rgb))
-    winner, mask = zbuffer_scatter_packed(rows, cols, depth, keep, cfg.proj_h, cfg.proj_w)
-    canvas = fill_canvas(vals, winner, mask)
-    lab = canvas[..., 5].to(torch.int32)
-    feature = torch.cat([canvas[..., :5], rgb], dim=-1)
-    return normalize_feature(feature, mask, cfg), mask, lab, rows, cols, keep, depth
+    geometry = view_geometry(points[None], labels[None], valid[None], proj_matrix[None],
+                             image[None], *scan_sizes(img_h, img_w, points.device), cfg)
+    return fill_scan([t[0] for t in geometry], cfg.proj_h, cfg.proj_w, cfg)

@@ -9,7 +9,10 @@ nested dicts of numpy arrays, build the port model's state_dict.
          weight, bias, running_mean, running_var
   names: torchvision ResNet layer{s}.{i}.conv{j} ↔ flax layer{s}_{i}/conv{j},
          downsample.{0,1} ↔ downsample_{conv,bn}; nn.Sequential indices of
-         the fusion blocks and the RGB decoder ↔ flax submodule names.
+         the fusion blocks, the RGB decoders and EPMF's extraUpSample ↔
+         flax submodule names
+  EPMF:  a SparseVariantConv's extra bias .../conv{i}.bias ↔ flax
+         .../conv{i}/bias (its Conv is .../conv{i}/conv/Conv_0)
 
 `random_weights` fills a model from a seed instead, for runs without a
 checkpoint.
@@ -22,6 +25,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .epmf import SparseVariantConv
 from .resnet import ResNetEncoder
 
 # (parent module, nn.Sequential index) → flax submodule name
@@ -31,6 +35,10 @@ _SEQ_NAMES = {
     ("attention", "3"): "att_conv2", ("attention", "4"): "att_bn2",
     **{(f"up_{i}a", "0"): f"up_{i}a_conv" for i in (1, 2, 3, 4)},
     **{(f"up_{i}a", "2"): f"up_{i}a_bn" for i in (1, 2, 3, 4)},
+    # EPMF's extraUpSample: nn.Sequential(conv, LReLU, BN, PixelShuffle) ↔
+    # the flax module extraUpSample/{conv,bn}
+    ("extraUpSample", "0"): ("extraUpSample", "conv"),
+    ("extraUpSample", "2"): ("extraUpSample", "bn"),
 }
 
 
@@ -38,7 +46,8 @@ def _generic_path(parts) -> list:
     out: list = []
     for p in parts:
         if out and (out[-1], p) in _SEQ_NAMES:
-            out[-1] = _SEQ_NAMES[(out[-1], p)]
+            new = _SEQ_NAMES[(out[-1], p)]
+            out[-1:] = [new] if isinstance(new, str) else list(new)
         else:
             out.append(p)
     return out
@@ -73,12 +82,14 @@ def _leaf(tree: dict, path: tuple) -> torch.Tensor:
 
 def state_dict_from_flax(model: nn.Module, params: dict,
                          batch_stats: dict) -> dict:
-    """The port model's state_dict with every conv and BN tensor taken from
-    the flax trees."""
+    """The port model's state_dict with every conv and BN tensor, and the
+    extra bias of each SparseVariantConv, taken from the flax trees."""
     encoders = [n for n, m in model.named_modules() if isinstance(m, ResNetEncoder)]
     sd = dict(model.state_dict())
     for name, m in model.named_modules():
-        if isinstance(m, nn.Conv2d):
+        if isinstance(m, SparseVariantConv):
+            sd[f"{name}.bias"] = _leaf(params, flax_path(name, encoders) + ("bias",))
+        elif isinstance(m, nn.Conv2d):
             path = flax_path(name, encoders) + ("Conv_0",)
             sd[f"{name}.weight"] = _leaf(params, path + ("kernel",)).permute(3, 2, 0, 1)
             if m.bias is not None:
@@ -109,11 +120,14 @@ def read_flax_npz(path: str) -> tuple[dict, dict]:
 
 def load_weights(model: nn.Module, path: str) -> nn.Module:
     """Load `path` into `model`: a `.pth` torch state_dict with the
-    reference's (pc_processor) names, or an `.npz` of the flat flax tree."""
+    reference's (pc_processor) names, or an `.npz` of the flat flax tree.
+    The multi-task loss weights `mt_sigma` that a trainer's snapshot carries
+    beside the model's tensors are not the model's, and are left out."""
     if path.endswith(".npz"):
         sd = state_dict_from_flax(model, *read_flax_npz(path))
     else:
         sd = torch.load(path, map_location="cpu", weights_only=True)
+        sd.pop("mt_sigma", None)
     model.load_state_dict(sd)
     return model
 

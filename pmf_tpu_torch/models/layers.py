@@ -43,7 +43,9 @@ class BatchNorm2d(nn.BatchNorm2d):
         a = torch.rsqrt(self.running_var + self.eps) * self.weight
         return a, self.bias - self.running_mean * a
 
-    def forward(self, x):
+    def forward(self, x, dtype: torch.dtype | None = None):
+        """BN(x), applied in `dtype` (x's own by default) after the
+        statistics are taken from x as it is."""
         if not self.training:
             a, b = self.fold()
         else:
@@ -56,6 +58,7 @@ class BatchNorm2d(nn.BatchNorm2d):
                 self.running_var.copy_(m * self.running_var + self.momentum * var)
             a = torch.rsqrt(var + self.eps) * self.weight
             b = self.bias - mean * a
+        x = x if dtype is None else x.to(dtype)
         return x * a.to(x.dtype)[:, None, None] + b.to(x.dtype)[:, None, None]
 
 

@@ -37,7 +37,9 @@ class ResidualBasedFusionBlock(nn.Module):
                                        BatchNorm2d(c), nn.Sigmoid())
 
     def forward(self, pcd_feature, img_feature):
-        fused = self.fuse_conv(torch.cat([pcd_feature, img_feature.to(pcd_feature.dtype)], 1))
+        # the convolutions run in the camera features' (compute) dtype; the
+        # residual keeps pcd_feature's (EPMF's sparse stem gives float32)
+        fused = self.fuse_conv(torch.cat([pcd_feature.to(img_feature.dtype), img_feature], 1))
         a = self.attention
         att = conv_bn(fused, a[0], a[1], torch.relu)
         att = torch.sigmoid(conv_bn(att, a[3], a[4]))
@@ -168,11 +170,15 @@ class PMFNet(nn.Module):
         return lidar.permute(0, 2, 3, 1), camera.permute(0, 2, 3, 1)
 
 
-def build_model(opts) -> PMFNet:
-    """The PMFNet of an experiment's Options (nclasses, base_channels,
-    img_backbone, compute_dtype), its weights at torch's initialization."""
-    if opts.net_type != "PMFNet":
+def build_model(opts) -> nn.Module:
+    """The PMFNet or EPMFNet of an experiment's Options (net_type, nclasses,
+    base_channels, img_backbone, compute_dtype), its weights at torch's
+    initialization."""
+    from .epmf import EPMFNet
+
+    nets = {"PMFNet": PMFNet, "EPMFNet": EPMFNet}
+    if opts.net_type not in nets:
         raise NotImplementedError(f"{opts.net_type} is not ported yet")
     dtype = torch.bfloat16 if opts.compute_dtype == "bfloat16" else torch.float32
-    return PMFNet(nclasses=opts.nclasses, base_channels=opts.base_channels,
-                  image_backbone=opts.img_backbone, dtype=dtype)
+    return nets[opts.net_type](nclasses=opts.nclasses, base_channels=opts.base_channels,
+                               image_backbone=opts.img_backbone, dtype=dtype)

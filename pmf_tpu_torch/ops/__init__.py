@@ -1,5 +1,6 @@
 from .knn import knn_postprocess
-from .projection import perspective_project, perspective_project_cam, read_kitti_calib
+from .projection import (perspective_project, perspective_project_cam, read_kitti_calib,
+                         yaw_crop_project)
 from .rasterize import rasterize_zbuffer, rasterize_zbuffer_plain
 from .reduce import argmax_last
 from .resize import pixel_shuffle, upsample_bilinear

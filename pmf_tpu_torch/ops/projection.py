@@ -8,6 +8,8 @@ dimension is allowed ([..., N, 3] points with [..., 3, 4] matrices and
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -71,3 +73,19 @@ def perspective_project_cam(points, proj_matrix, img_h, img_w,
     keep = keep & (u > margin) & (u < img_w - margin) & (v > margin) & \
         (v < img_h - margin)
     return v, u, keep
+
+
+def yaw_crop_project(points, proj_matrix, fov_left: float = -math.pi / 4,
+                     fov_right: float = math.pi / 4, valid=None):
+    """The EPMF view's crop: keep points with range > 0.5 m and yaw
+    -atan2(y, x) in [fov_left, fov_right], and valid; project them with no
+    image-bound test (the view takes their tight box). Returns (rows, cols)
+    float32 and keep."""
+    depth = torch.linalg.vector_norm(points[..., :3], dim=-1)
+    yaw = -torch.atan2(points[..., 1], points[..., 0])
+    keep = (depth > 0.5) & (yaw >= fov_left) & (yaw <= fov_right)
+    if valid is not None:
+        keep = keep & valid
+    uvw = _project(points, proj_matrix)
+    w = torch.where(uvw[..., 2].abs() > 1e-9, uvw[..., 2], 1e-9)
+    return uvw[..., 1] / w, uvw[..., 0] / w, keep

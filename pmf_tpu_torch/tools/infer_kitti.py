@@ -1,4 +1,4 @@
-"""SemanticKITTI evaluation, PMF branch (counterpart of
+"""SemanticKITTI evaluation of PMFNet and EPMFNet (counterpart of
 `pmf_tpu/tools/infer_kitti.py`).
 
 Per-scan inference with the points' projection kept: 2D pixel and 3D point
@@ -9,9 +9,11 @@ Usage:
   python -m pmf_tpu_torch.tools.infer_kitti <config.yaml> --weights W
       [--knn] [--save-preds DIR] [--max-scans N] [--device cpu|cuda]
 
-W is a `.pth` torch state_dict with the reference's module names or an
-`.npz` of the flat flax tree (see models/convert.py). The run is on the
-card unless --device cpu is given.
+W is a `.pth` torch state_dict with the reference's module names (a
+trainer's snapshot, whose `mt_sigma` is left out) or an `.npz` of the flat
+flax tree (see models/convert.py). EPMFNet (`net_type`) runs on the V2 view
+of the config's `PVconfig` group. The run is on the card unless --device
+cpu is given.
 """
 from __future__ import annotations
 
@@ -26,11 +28,11 @@ import torch
 
 from ..config import Options, load_options
 from ..data import (
-    SemanticKitti, build_eval_sample_with_uproj, kitti_sample_reader, point_depth,
-    pv_config,
+    SemanticKitti, build_eval_sample_with_uproj, build_v2_eval_sample_with_uproj,
+    kitti_sample_reader, point_depth, pv_config, view_config,  # noqa: F401 (pv_config: PMF's view)
 )
 from ..metrics import IOUEval
-from ..models import PMFNet, build_model, load_weights
+from ..models import build_model, load_weights
 from ..ops import argmax_last, knn_postprocess
 from ..utils import resolve_device
 from ..utils.tables import latex_row, matrix_report, per_class_report
@@ -44,7 +46,7 @@ class Inference:
     is needed only to name and write `save_preds` files and to label the
     report's classes."""
 
-    def __init__(self, opts: Options, model: PMFNet, reader: Callable[[int], dict],
+    def __init__(self, opts: Options, model: torch.nn.Module, reader: Callable[[int], dict],
                  n_scans: int, device: torch.device, ignore=(0,),
                  use_knn: bool = False, save_preds: str | None = None,
                  dataset: SemanticKitti | None = None):
@@ -53,7 +55,9 @@ class Inference:
         self.opts, self.model, self.reader = opts, model, reader
         self.n_scans, self.device = n_scans, device
         self.use_knn, self.save_preds, self.dataset = use_knn, save_preds, dataset
-        self.pv_cfg = pv_config(opts)
+        self.pv_cfg = view_config(opts)
+        self.build = build_v2_eval_sample_with_uproj if opts.net_type == "EPMFNet" else \
+            build_eval_sample_with_uproj
         knn = opts.group("post").get("KNN", {}).get("params", {})
         self.knn_params = {"knn": int(knn.get("knn", 5)),
                            "search": int(knn.get("search", 5)),
@@ -71,7 +75,7 @@ class Inference:
         model = build_model(opts).to(device).eval()
         load_weights(model, weights)
         ignore = [cl for cl, ig in dataset.learning_ignore.items() if ig] or [0]
-        return cls(opts, model, kitti_sample_reader(dataset, pv_config(opts)),
+        return cls(opts, model, kitti_sample_reader(dataset, view_config(opts)),
                    len(dataset), device, ignore, use_knn, save_preds, dataset)
 
     def _sync(self):
@@ -87,7 +91,7 @@ class Inference:
             s = self.reader(i)
             dev = lambda k: torch.as_tensor(s[k], device=self.device)
             points = dev("points")
-            f, m, l2d, rows, cols, keep, _ = build_eval_sample_with_uproj(
+            f, m, l2d, rows, cols, keep, _ = self.build(
                 points, dev("labels"), dev("valid"), dev("proj_matrix"),
                 dev("image"), int(s["img_h"]), int(s["img_w"]), cfg)
             self._sync()

@@ -1,4 +1,5 @@
-"""Train PMFNet on SemanticKITTI (counterpart of `pmf_tpu/tools/train.py`).
+"""Train PMFNet or EPMFNet on SemanticKITTI (counterpart of
+`pmf_tpu/tools/train.py`).
 
 Usage:
   python -m pmf_tpu_torch.tools.train <config.yaml> [--val-only] [--debug]
@@ -41,7 +42,7 @@ class Experiment:
         self.start_epoch = 0
         self.best = {"Acc": 0.0, "IOU": 0.0, "Recall": 0.0}
         if opts.checkpoint:
-            epoch = self.ckpt.restore(trainer.model, trainer.optimizer)
+            epoch = self.ckpt.restore(trainer.model, trainer.optimizer, trainer.mt_sigma)
             self.start_epoch = epoch + 1
             log.info(f"resumed from epoch {epoch}")
 
@@ -60,10 +61,10 @@ class Experiment:
                 for k in ("Acc", "IOU", "Recall"):
                     if metrics[k] > self.best[k]:
                         self.best[k] = metrics[k]
-                        self.ckpt.save_best(trainer.model, k)
+                        self.ckpt.save_best(trainer.model, k, trainer.mt_sigma)
                         log.info(f"new best {k}: {metrics[k]:.4f}")
-                self.ckpt.save_best(trainer.model, "last")
-            self.ckpt.save(trainer.model, trainer.optimizer, epoch)
+                self.ckpt.save_best(trainer.model, "last", trainer.mt_sigma)
+            self.ckpt.save(trainer.model, trainer.optimizer, epoch, trainer.mt_sigma)
             cost = datetime.timedelta(seconds=int(time.time() - t0))
             log.info(f"epoch {epoch} done; elapsed {cost}; best {self.best}")
         log.info(f"training done; best {self.best}")

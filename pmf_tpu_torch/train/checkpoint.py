@@ -1,10 +1,12 @@
 """Checkpoints (counterpart of `pmf_tpu/train/checkpoint.py`), with
 torch.save:
-  * the resume checkpoint {model, optimizer, epoch}, written every epoch to
-    `<dir>/checkpoint.pth`;
+  * the resume checkpoint {model, optimizer, epoch[, mt_sigma]}, written
+    every epoch to `<dir>/checkpoint.pth`;
   * best-per-metric snapshots `<dir>/best_{Acc,IOU,Recall,last}_model.pth`,
-    each a plain model state_dict, which `tools/infer_kitti.py --weights`
-    loads as it is;
+    each the model's state_dict, with the multi-task σ beside its tensors
+    under `mt_sigma` when the run learns one (as pmf_tpu's snapshots keep
+    it among the params); `tools/infer_kitti.py --weights` loads them and
+    leaves `mt_sigma` out;
   * `partial_load`, the tolerant load that takes only the tensors whose name
     and shape match.
 """
@@ -27,20 +29,29 @@ class CheckpointManager:
     def best_path(self, metric: str) -> str:
         return os.path.join(self.directory, f"best_{metric}_model.pth")
 
-    def save(self, model, optimizer, epoch: int):
-        _atomic_save({"model": model.state_dict(), "optimizer": optimizer.state_dict(),
-                      "epoch": epoch}, self.resume_path)
+    def save(self, model, optimizer, epoch: int, mt_sigma=None):
+        state = {"model": model.state_dict(), "optimizer": optimizer.state_dict(),
+                 "epoch": epoch}
+        if mt_sigma is not None:
+            state["mt_sigma"] = mt_sigma.detach()
+        _atomic_save(state, self.resume_path)
 
-    def restore(self, model, optimizer) -> int:
-        """Load the resume checkpoint into `model` and `optimizer`; returns
-        its epoch."""
+    def restore(self, model, optimizer, mt_sigma=None) -> int:
+        """Load the resume checkpoint into `model`, `optimizer` and
+        `mt_sigma` (in place); returns its epoch."""
         state = torch.load(self.resume_path, map_location="cpu", weights_only=True)
         model.load_state_dict(state["model"])
         optimizer.load_state_dict(state["optimizer"])
+        if mt_sigma is not None:
+            with torch.no_grad():
+                mt_sigma.copy_(state["mt_sigma"])
         return int(state["epoch"])
 
-    def save_best(self, model, metric: str):
-        _atomic_save(model.state_dict(), self.best_path(metric))
+    def save_best(self, model, metric: str, mt_sigma=None):
+        sd = model.state_dict()
+        if mt_sigma is not None:
+            sd["mt_sigma"] = mt_sigma.detach()
+        _atomic_save(sd, self.best_path(metric))
 
 
 def _atomic_save(obj, path: str):

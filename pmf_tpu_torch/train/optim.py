@@ -1,8 +1,9 @@
 """The PMF hybrid optimizer (counterpart of `pmf_tpu/train/optim.py:
 hybrid_pmf_optimizer`).
 
-AdamW (betas 0.9/0.999, eps 1e-8, weight decay 0.01) on the lidar stream and
-any other top-level module; SGD with Nesterov momentum and coupled weight
+AdamW (betas 0.9/0.999, eps 1e-8, weight decay 0.01) on the lidar stream, any
+other top-level module and the `extra` parameters beside the model (EPMF's
+multi-task σ); SGD with Nesterov momentum and coupled weight
 decay on the two camera streams. torch's AdamW and SGD(nesterov=True)
 compute the updates of optax's adamw and add_decayed_weights + sgd chains;
 both take their learning rate from one schedule, read at the optimizer's
@@ -20,10 +21,11 @@ CAMERA_KEYS = ("camera_stream_encoder", "camera_stream_decoder")
 
 class HybridOptimizer:
     def __init__(self, model: nn.Module, schedule: Callable[[int], float],
-                 momentum: float, weight_decay: float, camera_keys=CAMERA_KEYS):
+                 momentum: float, weight_decay: float, camera_keys=CAMERA_KEYS, extra=()):
         camera, other = [], []
         for name, p in model.named_parameters():
             (camera if name.split(".")[0] in camera_keys else other).append(p)
+        other.extend(extra)
         self.schedule = schedule
         self.steps = 0
         self.adamw = torch.optim.AdamW(other, lr=schedule(0), betas=(0.9, 0.999),

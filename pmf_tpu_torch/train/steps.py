@@ -1,10 +1,13 @@
-"""PMF train and eval steps (counterpart of `pmf_tpu/train/steps.py`).
+"""PMF and EPMF train and eval steps (counterpart of `pmf_tpu/train/steps.py`).
 
   loss = focal(lidar) + λ·lovász(lidar) + focal(cam) + λ·lovász(cam)
        + γ·perception_aware(lidar, cam)
 with the focal terms masked to labelled pixels (label > 0), the point-domain
 Lovász pair when the batch carries the points' winner flags, and the
-confusion matrices of both streams per batch. The model's parameters, its BN
+confusion matrices of both streams per batch. With `use_mtloss` (EPMF) the
+six terms are weighted instead by the learned σ of `multi_task_loss`, in
+the order [focal(cam), lovász(cam), perception(img), perception(pcd),
+focal(lidar), lovász(lidar)]. The model's parameters, its BN
 statistics and the optimizer's moments are the train state; a train step
 updates them in place.
 """
@@ -15,7 +18,7 @@ from dataclasses import dataclass
 import torch
 
 from ..losses import (focal_softmax_loss, lovasz_softmax_loss,
-                      lovasz_softmax_loss_points_pair, normalized_entropy,
+                      lovasz_softmax_loss_points_pair, multi_task_loss, normalized_entropy,
                       perception_aware_losses)
 from ..metrics.iou import confusion_matrix
 from ..ops.reduce import argmax_last
@@ -30,13 +33,15 @@ class LossConfig:
     gamma: float = 0.5         # perception-aware weight
     tau: float = 0.7           # confidence gate
     lovasz_ignore: int = 0
+    use_mtloss: bool = False   # EPMF: learned uncertainty weighting
 
 
-def pmf_losses(lidar_pred, camera_pred, label, cfg: LossConfig, points=None):
+def pmf_losses(lidar_pred, camera_pred, label, cfg: LossConfig, points=None, mt_sigma=None):
     """(total, aux) of the two streams' [B, H, W, C] probabilities against
     the canvas labels [B, H, W]; `points` = (pt_pix, pt_label, pt_won) from
     `build_batch(..., return_points=True)` switches Lovász to the point
-    domain."""
+    domain; with cfg.use_mtloss the total is `multi_task_loss(mt_sigma,
+    ...)`."""
     alpha = torch.tensor(cfg.alpha, dtype=torch.float32, device=label.device)
     label_mask = label > 0
     if points is not None:
@@ -49,8 +54,14 @@ def pmf_losses(lidar_pred, camera_pred, label, cfg: LossConfig, points=None):
     loss_foc_cam = focal_softmax_loss(camera_pred, label, alpha, cfg.gamma_focal, label_mask)
     loss_per_pcd, loss_per_img, _, _ = perception_aware_losses(lidar_pred, camera_pred, cfg.tau)
     loss_per = loss_per_pcd + loss_per_img
-    total = (loss_foc + loss_lov * cfg.lambda_ + loss_foc_cam + loss_lov_cam * cfg.lambda_
-             + loss_per * cfg.gamma)
+    if cfg.use_mtloss:
+        if mt_sigma is None:
+            raise ValueError("use_mtloss needs the mt_sigma weights")
+        total = multi_task_loss(mt_sigma, [loss_foc_cam, loss_lov_cam, loss_per_img,
+                                           loss_per_pcd, loss_foc, loss_lov])
+    else:
+        total = (loss_foc + loss_lov * cfg.lambda_ + loss_foc_cam + loss_lov_cam * cfg.lambda_
+                 + loss_per * cfg.gamma)
     with torch.no_grad():
         lidar_log = torch.log(lidar_pred.clamp(min=1e-8))
         cam_log = torch.log(camera_pred.clamp(min=1e-8))
@@ -68,17 +79,18 @@ def _confusions(aux, lidar_pred, camera_pred, label, nclasses, valid=None):
     return aux
 
 
-def make_pmf_train_step(model, optimizer, cfg: LossConfig):
+def make_pmf_train_step(model, optimizer, cfg: LossConfig, mt_sigma=None):
     """step(feature [B, H, W, 8], label [B, H, W], generator, points=None)
     → aux: forward in train mode (dropout from `generator`), the losses,
-    backward, one optimizer update; aux holds the detached loss terms and
-    the [C, C] confusion matrices of both streams, on the batch's device."""
+    backward, one optimizer update (of `mt_sigma` too, with cfg.use_mtloss,
+    when the optimizer holds it); aux holds the detached loss terms and the
+    [C, C] confusion matrices of both streams, on the batch's device."""
 
     def step(feature, label, generator=None, points=None):
         model.train()
         optimizer.zero_grad()
         lidar_pred, camera_pred = model(feature[..., 0:5], feature[..., 5:8], generator)
-        total, aux = pmf_losses(lidar_pred, camera_pred, label, cfg, points)
+        total, aux = pmf_losses(lidar_pred, camera_pred, label, cfg, points, mt_sigma)
         total.backward()
         optimizer.step()
         with torch.no_grad():
@@ -88,7 +100,7 @@ def make_pmf_train_step(model, optimizer, cfg: LossConfig):
     return step
 
 
-def make_pmf_eval_step(model, cfg: LossConfig):
+def make_pmf_eval_step(model, cfg: LossConfig, mt_sigma=None):
     """step(feature, label, sample_valid=None, points=None) → (aux,
     lidar_pred) with the model in eval mode; `sample_valid` [B] takes padded
     samples of a short last batch out of the confusion matrices."""
@@ -97,7 +109,7 @@ def make_pmf_eval_step(model, cfg: LossConfig):
     def step(feature, label, sample_valid=None, points=None):
         model.eval()
         lidar_pred, camera_pred = model(feature[..., 0:5], feature[..., 5:8])
-        _, aux = pmf_losses(lidar_pred, camera_pred, label, cfg, points)
+        _, aux = pmf_losses(lidar_pred, camera_pred, label, cfg, points, mt_sigma)
         valid = None
         if sample_valid is not None:
             valid = sample_valid[:, None, None].expand(label.shape)

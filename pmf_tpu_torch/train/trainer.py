@@ -1,12 +1,14 @@
-"""PMFNet training on SemanticKITTI (counterpart of the PMF branch of
-`pmf_tpu/train/trainer.py`).
+"""PMFNet and EPMFNet training on SemanticKITTI (counterpart of the PMF and
+EPMF branches of `pmf_tpu/train/trainer.py`).
 
 The Trainer batches samples from readers (`reader(i)` → the numpy sample
 dict of `data.kitti_sample_reader`), builds the train view on the device
-(`build_batch(train=True, return_points=True)`: K2 for the canvas, K1 for
-the points' winner flags), and runs the train step: PMFNet in train mode,
-`pmf_losses`, backward, the hybrid AdamW/SGD update, the confusion matrices.
-Validation runs the eval view and the eval step. Per-iteration log lines
+(PMF: `build_batch`, EPMF: the V2 view `build_v2_batch`; K2 for the canvas,
+and with the point-domain Lovász K1 for the points' winner flags), and runs
+the train step: the model in train mode, `pmf_losses` (weighted by the
+learned multi-task σ with `use_mtloss`), backward, the hybrid AdamW/SGD
+update, the confusion matrices. Validation runs the eval view and the eval
+step. Per-iteration log lines
 carry the data and process times, the learning rate, the loss, both
 streams' Acc/IoU/Recall and the remaining time.
 """
@@ -20,7 +22,8 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..data import SemanticKitti, build_batch, kitti_sample_reader, pv_config
+from ..data import SemanticKitti, build_batch, build_v2_batch, kitti_sample_reader, view_config
+from ..losses import init_multi_task_params
 from ..metrics import IOUEval
 from ..utils import AverageMeter, RemainTime
 from .optim import HybridOptimizer
@@ -79,30 +82,38 @@ def batches(reader: Callable[[int], dict], n: int, batch_size: int, shuffle: boo
 
 
 class Trainer:
-    """`model` (a PMFNet on `device`) trained on `n_train` samples of
-    `train_reader` and validated on `n_val` samples of `val_reader`, with
-    focal weights `alpha` [C] (classes of weight 0 are left out of the IoU).
-    Random draws (the train view, dropout) come from one generator on the
-    device, seeded by opts.seed."""
+    """`model` (a PMFNet or EPMFNet on `device`) trained on `n_train`
+    samples of `train_reader` and validated on `n_val` samples of
+    `val_reader`, with focal weights `alpha` [C] (classes of weight 0 are
+    left out of the IoU). With `use_mtloss` in the config the six loss terms
+    are weighted by `mt_sigma`, trained with the lidar stream. Random draws
+    (the train view, dropout) come from one generator on the device, seeded
+    by opts.seed."""
 
     def __init__(self, opts, model, train_reader: Callable[[int], dict], n_train: int,
                  val_reader: Callable[[int], dict], n_val: int, device: torch.device,
                  alpha, class_names: dict | None = None):
         self.opts, self.model, self.device = opts, model, device
         self.readers = {"Train": (train_reader, n_train), "Validation": (val_reader, n_val)}
-        self.pv_cfg = pv_config(opts)
+        self.pv_cfg = view_config(opts)
+        self.build = build_v2_batch if opts.net_type == "EPMFNet" else build_batch
         self.class_names = class_names or {}
         self.point_lovasz = bool(opts.config.get("point_lovasz", True))
+        use_mtloss = bool(opts.config.get("use_mtloss"))
+        self.mt_sigma = torch.nn.Parameter(init_multi_task_params(6, device)) \
+            if use_mtloss else None
         steps_per_epoch = max(self.n_batches("Train"), 1)
         self.lr_schedule = warmup_cosine_lr(
             opts.lr, opts.warmup_epochs * steps_per_epoch,
             (opts.n_epochs - opts.warmup_epochs) * steps_per_epoch)
         self.optimizer = HybridOptimizer(model, self.lr_schedule, opts.momentum,
-                                         opts.weight_decay)
+                                         opts.weight_decay,
+                                         extra=[self.mt_sigma] if use_mtloss else [])
         self.loss_cfg = LossConfig(nclasses=opts.nclasses, alpha=tuple(float(a) for a in alpha),
-                                   lambda_=opts.lambda_, gamma=opts.gamma, tau=opts.tau)
-        self.train_step = make_pmf_train_step(model, self.optimizer, self.loss_cfg)
-        self.eval_step = make_pmf_eval_step(model, self.loss_cfg)
+                                   lambda_=opts.lambda_, gamma=opts.gamma, tau=opts.tau,
+                                   use_mtloss=use_mtloss)
+        self.train_step = make_pmf_train_step(model, self.optimizer, self.loss_cfg, self.mt_sigma)
+        self.eval_step = make_pmf_eval_step(model, self.loss_cfg, self.mt_sigma)
         ignore = [cl for cl, a in enumerate(alpha) if a == 0]
         self.metrics = IOUEval(opts.nclasses, ignore=ignore)
         self.metrics_img = IOUEval(opts.nclasses, ignore=ignore)
@@ -122,7 +133,7 @@ class Trainer:
             alpha = config_focal_alpha(opts.config["cls_freq"])
         else:
             alpha = kitti_focal_alpha(trainset.cls_freq, trainset.learning_ignore)
-        cfg = pv_config(opts)
+        cfg = view_config(opts)
         return cls(opts, model, kitti_sample_reader(trainset, cfg), len(trainset),
                    kitti_sample_reader(valset, cfg), len(valset), device, alpha,
                    trainset.mapped_cls_name)
@@ -135,11 +146,10 @@ class Trainer:
     def _step(self, batch: dict, train: bool) -> dict:
         t = {k: torch.from_numpy(batch[k]).to(self.device) for k in _VIEW_KEYS}
         with torch.no_grad():
-            feature, _, label, points = build_batch(
+            feature, _, label, *points = self.build(
                 *(t[k] for k in _VIEW_KEYS), self.pv_cfg, train, self.generator,
-                return_points=True)
-        if not self.point_lovasz:
-            points = None
+                return_points=self.point_lovasz)
+        points = points[0] if points else None
         if train:
             return self.train_step(feature, label, self.generator, points)
         valid = torch.from_numpy(batch["batch_valid"]).to(self.device)

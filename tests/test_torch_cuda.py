@@ -234,3 +234,74 @@ def test_bf16_train_step_small(cuda_device):
     assert aux["conf"].sum() == aux["conf_cam"].sum() == B * 48 * 96
     moved = [not torch.equal(before[k], p) for k, p in model.named_parameters()]
     assert sum(moved) > len(moved) // 2
+
+
+def _epmf_cfg(n):
+    from pmf_tpu_torch.data import V2Config
+
+    return V2Config(canvas_h=384, canvas_w=1248, proj_h=320, proj_w=1280, proj_ht=320,
+                    proj_wt=1280, n_points=n)
+
+
+@pytest.mark.cuda
+def test_v2_batch_kernels_match_plain_at_131072_points(cuda_device):
+    """The EPMF view (eval, and train with return_points from a CUDA
+    generator) at the shipped config's 131072 points a scan: K2 on its
+    64-bit keys and K1 with 17 index bits, equal to the plain fills."""
+    from pmf_tpu_torch.data import build_v2_batch
+    from pmf_tpu_torch.data.perspective_pipeline_v2 import _build_v2_batch
+    from pmf_tpu_torch.data.synthetic import make_inputs
+
+    B, N = 2, 131072
+    cfg = _epmf_cfg(N)
+    batch = [torch.from_numpy(a).to(cuda_device)
+             for a in make_inputs(np.random.default_rng(16), B, N, 384, 1232)]
+    for train in (False, True):
+        gen = lambda: torch.Generator(device=cuda_device).manual_seed(17)
+        before = (trast.rasterize_zbuffer.launches, tzbuf.zbuffer_keys.launches)
+        got = build_v2_batch(*batch, cfg, train, gen(), return_points=True)
+        torch.cuda.synchronize()
+        assert (trast.rasterize_zbuffer.launches, tzbuf.zbuffer_keys.launches) == \
+            (before[0] + 1, before[1] + 1)
+        want = _build_v2_batch(*batch, cfg, train, gen(), None, True,
+                               fill=trast.rasterize_zbuffer_plain, keys=tzbuf.zbuffer_keys_plain)
+        for a, b in zip((*got[:3], *got[3]), (*want[:3], *want[3])):
+            assert torch.equal(a, b)
+        assert got[1].sum() > 10000
+
+
+@pytest.mark.cuda
+def test_epmf_per_scan_path_replays_in_cuda_graph(cuda_device):
+    """The EPMF per-scan eval view (K1 and a gather) captured into a CUDA
+    graph: a replay on another scan copied into the captured inputs gives
+    what an eager call gives."""
+    from pmf_tpu_torch.data import build_v2_eval_sample_with_uproj
+    from pmf_tpu_torch.data.synthetic import make_inputs
+
+    N = 131072
+    cfg = _epmf_cfg(N)
+    scans = [[torch.as_tensor(a[0]).to(cuda_device)
+              for a in make_inputs(np.random.default_rng(s), 1, N, 384, 1232)] for s in (18, 19)]
+    inputs = [t.clone() for t in scans[0]]
+    view = lambda: build_v2_eval_sample_with_uproj(*inputs, cfg)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        view()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = tzbuf.zbuffer_keys.launches
+    with torch.cuda.graph(graph):
+        outs = view()
+    assert tzbuf.zbuffer_keys.launches == before + 1
+    for scan in (scans[1], scans[0]):
+        for t, s in zip(inputs, scan):
+            t.copy_(s)
+        for o in outs:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        eager = view()
+        assert all(torch.equal(o, e) for o, e in zip(outs, eager))
+        assert outs[1].sum() > 10000
