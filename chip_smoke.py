@@ -52,7 +52,21 @@ Phases, each of which ends the run with a non-zero exit on failure:
      (bf16, train batch 2 and validation batch 4 at 320x1280, multi-task
      loss, image-domain Lovász as the config sets), 2 warm-up and 8 timed
      steps and one validation pass, checked as (6c) and σ trained; ms/step,
-     the step split, the peak memory (`launches_epmf_train`).
+     the step split, the peak memory (`launches_epmf_train`);
+  8. SalsaNext (configs/experiments/salsanext_kitti.yaml: the range view at
+     64x2048, 131072 points a scan, float32): (a) K1 at the range batch (8
+     scans, 17 index bits, forced ties) held to its plain version exactly
+     and timed as in phase 3 (`range_*` keys); (b) SalsaNext in float32 on
+     the card against the CPU at 2x16x128 (base 8), as phase 4, and one
+     float32 SalsaNext train step, as 6(b); (c) batched SalsaNext eval at
+     full width (base 32, batch 8): build_range_batch → SalsaNext → argmax,
+     the K1 fill equal to the plain fill, one scan through
+     SalsaNextInference.run with KNN, K1 launched (`launches_salsanext`),
+     scans/s; (d) the SalsaNext Trainer at full width (batch 8, the yaml's
+     point augmentation, reversed yaw bounds included), 2 warm-up and 8
+     timed steps and one validation pass, checked as (6c); ms/step, the
+     step split, the peak memory (`launches_salsanext_train`). TF32 is off
+     for the whole run, so float32 convolutions run in float32.
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Without a CUDA card the script exits 1 and
@@ -73,6 +87,7 @@ H, W, B, N, F = 384, 1232, 8, 32768, 6
 TH, TW = 256, 1024          # the train view (bench.py:67, pmf_kitti.yaml proj_ht/proj_wt)
 HE, WE, NE = 320, 1280, 131072  # EPMF's V2 view and point buffer (epmf_kitti.yaml PVconfig)
 BT, BV = 2, 4               # EPMF's train and validation batches (epmf_kitti.yaml batch_size)
+RH, RW, RN, RB = 64, 2048, 131072, 8  # SalsaNext's range view and batch (salsanext_kitti.yaml)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 
@@ -294,21 +309,23 @@ def rasterize_numbers(rows, cols, depth, keep, vals, h: int, w: int) -> dict:
 
 
 def keys_numbers(pix, key, h: int, w: int, kept: int):
-    """K1's times on one scan's keys, its plain version's and the library
-    call's (`full` + `scatter_reduce_` "amin", checked to compute the same
-    function), and its bound; and the library call itself."""
+    """K1's times on these keys ([B, N]: one scan, or a batch), its plain
+    version's and the library call's (`full` + `scatter_reduce_` "amin",
+    checked to compute the same function), and its bound (`kept` atomics);
+    and the library call itself."""
     from pmf_tpu_torch.ops import zbuffer
 
     pix64 = pix.long()
+    b = pix.shape[0]
 
     def library_keys():
-        out = torch.full((1, h * w + 1), zbuffer.IMAX, dtype=torch.int32, device=pix.device)
+        out = torch.full((b, h * w + 1), zbuffer.IMAX, dtype=torch.int32, device=pix.device)
         return out.scatter_reduce_(1, pix64, key, "amin")
 
-    if not torch.equal(library_keys()[:, :h * w].reshape(1, h, w),
+    if not torch.equal(library_keys()[:, :h * w].reshape(b, h, w),
                        zbuffer.zbuffer_keys_plain(pix, key, h, w)):
         fail("the library yardstick for zbuffer_keys computes another function")
-    bnd, by = bound_ms(pix.shape[1] * 8 + h * w * 4, kept)
+    bnd, by = bound_ms(pix.numel() * 8 + b * h * w * 4, kept)
     return {"ms": time_ms(lambda: zbuffer.zbuffer_keys(pix, key, h, w)),
             "device_ms": device_ms(lambda: zbuffer.zbuffer_keys(pix, key, h, w)),
             "plain_ms": time_ms(lambda: zbuffer.zbuffer_keys_plain(pix, key, h, w)),
@@ -405,28 +422,39 @@ def check_reference(dev):
     cfg = PVConfig(canvas_h=h, canvas_w=w + 16, proj_h=h, proj_w=w, n_points=2048)
     raw = make_inputs(np.random.default_rng(5), 2, 2048, h, w)
     model = random_weights(PMFNet(nclasses=20, base_channels=8), seed=6)
-    hold_card_to_cpu(dev, "[reference]", build_batch, cfg, raw, model, (h, w))
+    hold_card_to_cpu(dev, "[reference]", lambda d: build_batch(*on(raw, d), cfg), model)
 
 
-def hold_card_to_cpu(dev, tag: str, build, cfg, raw, model, size):
-    """`build` (the batched eval view) and `model` on the card against the
-    same on the CPU, held as `check_reference` says."""
+def on(arrays, d):
+    """numpy arrays as tensors on device `d`."""
+    return [torch.from_numpy(a).to(d) for a in arrays]
+
+
+def fusion_forward(model, f):
+    return model(f[..., :5], f[..., 5:8])
+
+
+def hold_card_to_cpu(dev, tag: str, view, model, forward=fusion_forward):
+    """`view(device)` (a batched eval view: features, mask, labels) and
+    `forward(model, features)` (the streams' probabilities, the lidar
+    stream's first) on the card against the same on the CPU, held as
+    `check_reference` says."""
     from pmf_tpu_torch.ops import argmax_last
 
     outs = []
     for d in (torch.device("cpu"), dev):
         m = model.to(d)
         with torch.inference_mode():
-            f, mask, lab = build(*(torch.from_numpy(a).to(d) for a in raw), cfg)
-            lidar, cam = m(f[..., :5], f[..., 5:8])
-        outs.append([t.cpu() for t in (f, mask, lab, lidar, cam, argmax_last(lidar))])
-    (f0, m0, l0, p0, c0, a0), (f1, m1, l1, p1, c1, a1) = outs
+            f, mask, lab = view(d)
+            probs = forward(m, f)
+        outs.append([t.cpu() for t in (f, mask, lab, argmax_last(probs[0]), *probs)])
+    (f0, m0, l0, a0, p0, *c0), (f1, m1, l1, a1, p1, *c1) = outs
     f_err = (f0 - f1).abs().max().item()
     f_ulp = ulp(f0.abs().max())
     if f_err > 4 * f_ulp or not (torch.equal(m0, m1) and torch.equal(l0, l1)):
         fail(f"{tag} the card's mask or labels differ from the CPU's, or its features "
              f"by {f_err} (tolerance 4 ulp = {4 * f_ulp})")
-    err = max((p0 - p1).abs().max().item(), (c0 - c1).abs().max().item())
+    err = max((x - y).abs().max().item() for x, y in zip([p0, *c0], [p1, *c1]))
     top2 = p0.topk(2, dim=-1).values
     clear = top2[..., 0] - top2[..., 1] > 1e-4
     n_classes = a0.unique().numel()
@@ -435,7 +463,7 @@ def hold_card_to_cpu(dev, tag: str, build, cfg, raw, model, size):
     if clear.float().mean() <= 0.9 or n_classes < 2:
         fail(f"{tag} the reference run cannot tell forwards apart: top-2 margin > 1e-4 at "
              f"{clear.float().mean().item():.3f} of the pixels, {n_classes} classes")
-    print(f"{tag} card vs CPU at {len(raw[0])}x{size[0]}x{size[1]}: mask/labels exact "
+    print(f"{tag} card vs CPU at {'x'.join(map(str, m0.shape))}: mask/labels exact "
           f"({int(m0.sum())} occupied pixels), features max abs diff {f_err:.3g} = "
           f"{f_err / f_ulp:.2f} ulp of the largest feature {f0.abs().max().item():.4g} "
           f"(tolerance 4 ulp), probabilities max abs diff {err:.3g} (tolerance 1e-4); argmax "
@@ -579,18 +607,23 @@ def check_train_view(dev, batch):
 
 
 def train_step_run(model, dev, batch, mt_sigma=None):
-    """One train step (make_pmf_train_step, hybrid optimizer; with
-    `mt_sigma` the multi-task loss, σ in the AdamW group) of `model` on
-    `batch` moved to `dev`: (aux, gradients by name, BN running
-    statistics)."""
-    from pmf_tpu_torch.train import HybridOptimizer, LossConfig, make_pmf_train_step
+    """One train step of `model` on `batch` moved to `dev` (PMFNet and
+    EPMFNet: make_pmf_train_step, hybrid optimizer, with `mt_sigma` the
+    multi-task loss, σ in the AdamW group; SalsaNext: its step and adamw):
+    (aux, gradients by name, BN running statistics)."""
+    from pmf_tpu_torch.models import SalsaNext
+    from pmf_tpu_torch.train import (HybridOptimizer, LossConfig, adamw, make_pmf_train_step,
+                                     make_salsanext_train_step)
 
     feature, label, points = (t.to(dev) if torch.is_tensor(t) else
                               None if t is None else tuple(x.to(dev) for x in t) for t in batch)
     extra = [] if mt_sigma is None else [torch.nn.Parameter(mt_sigma.to(dev, copy=True))]
-    opt = HybridOptimizer(model, lambda step: 1e-3, 0.9, 1e-5, extra=extra)
     cfg = LossConfig(alpha=tuple([0.0] + [1.0] * 19), use_mtloss=bool(extra))
-    aux = make_pmf_train_step(model, opt, cfg, *extra)(feature, label, None, points)
+    if isinstance(model, SalsaNext):
+        aux = make_salsanext_train_step(model, adamw(model, lambda step: 1e-3), cfg)(feature, label)
+    else:
+        opt = HybridOptimizer(model, lambda step: 1e-3, 0.9, 1e-5, extra=extra)
+        aux = make_pmf_train_step(model, opt, cfg, *extra)(feature, label, None, points)
     grads = {k: p.grad.detach().double().cpu() for k, p in model.named_parameters()}
     grads.update({"mt_sigma": p.grad.detach().double().cpu() for p in extra})
     stats = {k: v.detach().cpu() for k, v in model.state_dict().items() if "running" in k}
@@ -703,7 +736,8 @@ def profile_step(step, smi, top: int = 12, name: str = "train step"):
 
 
 def scan_reader(raw, n_pool: int):
-    """reader(i) → the numpy sample dict of synthetic scan i mod n_pool."""
+    """reader(i) → the numpy sample dict of synthetic scan i mod n_pool (the
+    perspective views' keys, or the range view's for 3 arrays)."""
     keys = ("points", "labels", "valid", "proj_matrix", "image", "img_h", "img_w")
     return lambda i: {k: a[i % n_pool] for k, a in zip(keys, raw)}
 
@@ -732,7 +766,7 @@ def train_path(dev, smi, tag, net, opts, raw, size_train, size_val, kernels_of_p
     each of `kernels_of_path` must have been launched."""
     from pmf_tpu_torch.models import build_model, random_weights
     from pmf_tpu_torch.ops import rasterize, zbuffer
-    from pmf_tpu_torch.train import Trainer, pmf_losses
+    from pmf_tpu_torch.train import Trainer, pmf_losses, salsanext_losses
     from pmf_tpu_torch.train.trainer import batches
 
     bt, bv = opts.batch_size
@@ -762,8 +796,9 @@ def train_path(dev, smi, tag, net, opts, raw, size_train, size_val, kernels_of_p
                 "rasterize_zbuffer": rasterize.rasterize_zbuffer.launches}
     peak = torch.cuda.max_memory_allocated()
 
+    n_terms = 3 if trainer.is_range else 6      # the total and each term
     losses = [v for r in runs + [val] for k, v in r.items() if k.startswith(("loss", "Loss"))]
-    if not all(np.isfinite(losses)) or len(losses) != 6 * len(runs + [val]):
+    if not all(np.isfinite(losses)) or len(losses) != n_terms * len(runs + [val]):
         fail(f"{tag} train path: non-finite or missing losses {runs + [val]}")
     after = model.state_dict()
     params = [k for k, _ in model.named_parameters()]
@@ -775,29 +810,31 @@ def train_path(dev, smi, tag, net, opts, raw, size_train, size_val, kernels_of_p
              f"{len(stats)} BN statistics changed")
     if sigma0 is not None and torch.equal(sigma0, trainer.mt_sigma.detach()):
         fail(f"{tag} the multi-task sigma did not train")
-    if train_conf != (2 * bt * th * tw,) * 2 or val_conf != (bv * vh * vw,) * 2:
+    streams = 1 if trainer.is_range else 2
+    if train_conf[:streams] != (2 * bt * th * tw,) * streams or \
+            val_conf[:streams] != (bv * vh * vw,) * streams:
         fail(f"{tag} confusion matrices sum to {train_conf} (train) and {val_conf} "
              f"(validation), not the {2 * bt * th * tw} and {bv * vh * vw} labelled pixels")
     if min(launches[k] for k in kernels_of_path) == 0:
         fail(f"{tag} a kernel of the train path was not launched: {launches}")
 
     # one more step, split by CUDA events (the trainer's pieces, in its order)
-    x = [torch.from_numpy(a[:bt]).to(dev) for a in raw]
+    x = {k: torch.from_numpy(a).to(dev) for k, a in next(batches(reader, bt, bt, False)).items()}
     g, opt = trainer.generator, trainer.optimizer
     splits = []
     for _ in range(3):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
         ev[0].record()
-        with torch.no_grad():
-            f, _, lab, *pts = trainer.build(*x, trainer.pv_cfg, True, g,
-                                            return_points=trainer.point_lovasz)
+        f, lab, pts = trainer.view(x, True)
         ev[1].record()
         model.train()
         opt.zero_grad()
-        lidar, cam = model(f[..., :5], f[..., 5:8], g)
+        preds = model(f, g) if trainer.is_range else model(f[..., :5], f[..., 5:8], g)
         ev[2].record()
-        total, _ = pmf_losses(lidar, cam, lab, trainer.loss_cfg, pts[0] if pts else None,
-                              trainer.mt_sigma)
+        if trainer.is_range:
+            total, _ = salsanext_losses(preds, lab, trainer.loss_cfg)
+        else:
+            total, _ = pmf_losses(*preds, lab, trainer.loss_cfg, pts, trainer.mt_sigma)
         ev[3].record()
         total.backward()
         ev[4].record()
@@ -809,8 +846,9 @@ def train_path(dev, smi, tag, net, opts, raw, size_train, size_val, kernels_of_p
     names = ("view", "forward", "loss", "backward", "optimizer")
     profile_step(lambda: trainer._step(next(batches(reader, 2 * bt, bt, True)), True), smi)
     lovasz = "point" if trainer.point_lovasz else "image-domain"
-    print(f"{tag} Trainer, {net} bf16, batch {bt}, {th}x{tw} crop, {raw[0].shape[1]} points, "
-          f"{lovasz} Lovász{', multi-task loss' if sigma0 is not None else ''}: "
+    print(f"{tag} Trainer, {net} {opts.compute_dtype}, batch {bt}, {th}x{tw} crop, "
+          f"{raw[0].shape[1]} points, {lovasz} Lovász"
+          f"{', multi-task loss' if sigma0 is not None else ''}: "
           f"{ms_step:.2f} ms/step = {bt / ms_step * 1e3:.2f} train scans/s "
           f"(8 steps after 2 warm-up, host-inclusive) on {smi}")
     print(f"{tag} one step split (CUDA events, median of 3): "
@@ -883,7 +921,7 @@ def check_epmf_reference(dev):
     raw[3][:, 0, 1] = raw[3][:, 1, 2] = -60.0
     torch.manual_seed(10)
     model = random_weights(EPMFNet(nclasses=20, base_channels=8), seed=10)
-    hold_card_to_cpu(dev, "[epmf] (b)", build_v2_batch, cfg, raw, model, (h, w))
+    hold_card_to_cpu(dev, "[epmf] (b)", lambda d: build_v2_batch(*on(raw, d), cfg), model)
 
     full = lambda v, dt: torch.full((2,), v, dtype=dt)
     aug = V2AugParams(full(1.1, torch.float32), full(True, torch.bool),
@@ -951,6 +989,163 @@ def epmf_train(dev, smi):
                       ("rasterize_zbuffer",))
 
 
+def salsanext_opts():
+    """Options of configs/experiments/salsanext_kitti.yaml as shipped (the
+    file's values, written out: this script reads no YAML)."""
+    from pmf_tpu_torch.config import Options
+
+    aug = {"p_flipx": 0.0, "p_flipy": 0.5, "p_transx": 0.5, "trans_xmin": -5, "trans_xmax": 5,
+           "p_transy": 0.5, "trans_ymin": -3, "trans_ymax": 3, "p_transz": 0.5,
+           "trans_zmin": -1, "trans_zmax": 0.0, "p_rot_roll": 0.5, "rot_rollmin": -5,
+           "rot_rollmax": 5, "p_rot_pitch": 0.5, "rot_pitchmin": -5, "rot_pitchmax": 5,
+           "p_rot_yaw": 0.5, "rot_yawmin": 5, "rot_yawmax": -5}
+    sensor = {"proj_h": RH, "proj_w": RW, "fov_up": 3.0, "fov_down": -25.0, "fov_left": -180.0,
+              "fov_right": 180.0, "n_points": RN}
+    return Options(config={"sensor": sensor, "augmentation": aug, "post": {"KNN": {"params": {
+        "knn": 5, "search": 5, "sigma": 1.0, "cutoff": 1.0}}}},
+        net_type="SalsaNext", nclasses=20, base_channels=32, lr=0.01, batch_size=(RB, RB),
+        n_epochs=5, warmup_epochs=1, lambda_=1.0, gamma=0.0)
+
+
+def check_range_kernels(dev, batch, smi):
+    """8(a): K1 at the SalsaNext range batch's own keys (8 scans of 131072
+    points into 64x2048, 17 index bits) with forced ties, held to its plain
+    version exactly and timed as in phase 3. Returns its numbers under keys
+    prefixed `range_`."""
+    from pmf_tpu_torch.data import range_config
+    from pmf_tpu_torch.ops import zbuffer
+    from pmf_tpu_torch.ops.projection import spherical_project
+    from pmf_tpu_torch.ops.scatter import packed_keys
+
+    cfg = range_config(salsanext_opts())
+    px, py, depth, keep = spherical_project(batch[0], cfg.fov_up, cfg.fov_down, RH, RW,
+                                            cfg.fov_left, cfg.fov_right, batch[2])
+    py, px, depth, keep = force_ties(py, px, depth, keep, seed=3, h=RH)
+    pix, key, nbits = packed_keys(py, px, depth, keep, RH, RW, 1 / 64)
+    pix, key = pix.contiguous(), key.contiguous()
+    err = hold_keys(f"SalsaNext range batch, {nbits} index bits, forced ties", pix, key, RH, RW)
+    numbers = {"max_abs_err": err, **keys_numbers(pix, key, RH, RW, int(keep.sum()))[0]}
+    out = {"range_" + k: v for k, v in numbers.items()}
+    print_numbers("zbuffer_keys", out, smi, "range_")
+    trace("zbuffer_keys at the range batch", lambda: zbuffer.zbuffer_keys(pix, key, RH, RW), smi)
+    return out
+
+
+def range_view(build, raw, cfg, **kw):
+    """`build` (the batched range view) on device tensors of `raw` as the
+    perspective views return theirs: (features, mask, labels)."""
+    f, lab, mask = build(*raw, cfg, **kw)
+    return f, mask, lab
+
+
+def check_salsanext_reference(dev):
+    """8(b): SalsaNext in float32 on the card against the CPU at 2x16x128,
+    base 8, as phase 4 holds PMF (build_range_batch through K1 there, the
+    plain version here); then one float32 SalsaNext train step (adamw) on
+    the card against the CPU, as 6(b), with its BN statistics held in the
+    float64 step as 7(b) does: the deepest BN sees 8 pixels a scan."""
+    from pmf_tpu_torch.data import RangeConfig, build_range_batch
+    from pmf_tpu_torch.data.synthetic import make_range_inputs
+    from pmf_tpu_torch.models import SalsaNext, random_weights
+
+    cfg = RangeConfig(proj_h=16, proj_w=128, n_points=4096)
+    raw = make_range_inputs(np.random.default_rng(12), 2, 4096, 4000)
+    torch.manual_seed(12)
+    model = random_weights(SalsaNext(nclasses=20, base_channels=8), seed=12)
+    hold_card_to_cpu(dev, "[salsanext] (b)",
+                     lambda d: range_view(build_range_batch, on(raw, d), cfg), model,
+                     lambda m, f: (m(f),))
+    f, lab, _ = build_range_batch(*on(raw, "cpu"), cfg)
+    model = random_weights(SalsaNext(nclasses=20, base_channels=8, dropout_rate=0.0), seed=13)
+    hold_train_step(dev, "[salsanext] (b) f32 SalsaNext train step card vs CPU at 2x16x128, "
+                    "base 8", model, (f, lab, None), stats_in_float64=True)
+
+
+def salsanext_main_path(dev, batch, raw, smi):
+    """8(c): batched SalsaNext eval at full width (base 32, float32, batch
+    8): build_range_batch → SalsaNext → argmax, the kernel fill equal to
+    the plain fill, and one scan through SalsaNextInference.run with KNN;
+    K1's launches read around this phase alone; scans/s. Returns the
+    launch counts."""
+    from pmf_tpu_torch.data import build_range_batch, range_config
+    from pmf_tpu_torch.data.range_pipeline import _build_range_batch
+    from pmf_tpu_torch.models import build_model, random_weights
+    from pmf_tpu_torch.ops import argmax_last, rasterize, zbuffer
+    from pmf_tpu_torch.tools.infer_salsanext import SalsaNextInference
+
+    opts = salsanext_opts()
+    cfg = range_config(opts)
+    torch.manual_seed(0)
+    model = random_weights(build_model(opts), seed=0).to(dev)
+    scan = {k: a[0] for k, a in zip(("points", "labels", "valid"), raw)}
+    inference = SalsaNextInference(opts, model, lambda i: scan, 1, dev, use_knn=True)
+
+    def batched():
+        f, lab, m = build_range_batch(*batch, cfg)
+        pred = model(f)
+        return f, m, lab, pred, argmax_last(pred)
+
+    zbuffer.zbuffer_keys.launches = 0
+    rasterize.rasterize_zbuffer.launches = 0
+    with torch.inference_mode():
+        f, m, lab, pred, am = batched()
+        report = inference.run()
+    torch.cuda.synchronize()
+    launches = {"zbuffer_keys": zbuffer.zbuffer_keys.launches,
+                "rasterize_zbuffer": rasterize.rasterize_zbuffer.launches}
+    print(f"[salsanext] (c) launches on the SalsaNext eval path: {json.dumps(launches)}")
+    if launches["zbuffer_keys"] == 0:
+        fail(f"[salsanext] (c) K1 was not launched on the SalsaNext eval path: {launches}")
+    if pred.shape != (RB, RH, RW, 20) or not torch.isfinite(pred).all() \
+            or not torch.isfinite(f).all() or f.shape != (RB, RH, RW, 5):
+        fail(f"[salsanext] (c) probabilities {tuple(pred.shape)} or features "
+             f"{tuple(f.shape)} of the wrong shape or not finite")
+    n_classes = am.unique().numel()
+    if n_classes < 2 or int(lab.min()) < 0 or int(lab.max()) >= 20:
+        fail(f"[salsanext] (c) {n_classes} classes predicted, labels "
+             f"{int(lab.min())}..{int(lab.max())}")
+    if not all(np.isfinite(report[k]) for k in ("mIoU", "mAcc", "mRecall")):
+        fail(f"[salsanext] (c) SalsaNextInference.run report is not finite: {report}")
+    print(f"[salsanext] (c) batched: {int(m.sum())} occupied pixels, {n_classes} classes "
+          f"predicted; one scan through SalsaNextInference.run (KNN): point mIoU "
+          f"{report['mIoU']:.4f}")
+
+    with torch.inference_mode():
+        plain = _build_range_batch(*batch, cfg, keys=zbuffer.zbuffer_keys_plain)
+        if not all(torch.equal(x, y) for x, y in zip((f, lab, m), plain)):
+            fail("[salsanext] (c) the batched range view gives other features, labels or "
+                 "mask with the plain fill")
+        print("[salsanext] (c) batched range view: K1 fill == plain fill (features, labels, "
+              "mask)")
+        for _ in range(2):
+            batched()
+        times = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            batched()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        profile_step(batched, smi, name="eval batch (build_range_batch+SalsaNext+argmax)")
+    med = statistics.median(times)
+    print(f"[salsanext] (c) batched eval build_range_batch+SalsaNext+argmax, batch {RB}, "
+          f"{RH}x{RW}, {RN} points, float32 (TF32 off): {RB / med:.2f} scans/s (median of "
+          f"{len(times)} batches: {med * 1e3:.2f} ms, min {min(times) * 1e3:.2f}, max "
+          f"{max(times) * 1e3:.2f}) on {smi}")
+    return launches
+
+
+def salsanext_train(dev, smi):
+    """8(d): the SalsaNext Trainer at full width (salsanext_kitti.yaml:
+    float32, batch 8 for training and validation, 64x2048, 131072 points,
+    the point augmentation with its reversed yaw bounds)."""
+    from pmf_tpu_torch.data.synthetic import make_range_inputs
+
+    raw = make_range_inputs(np.random.default_rng(5), 2 * RB, RN, RN - 10000)
+    return train_path(dev, smi, "[salsanext] (d)", "SalsaNext", salsanext_opts(), raw,
+                      (RH, RW), (RH, RW), ("zbuffer_keys",))
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA card")
@@ -968,7 +1163,7 @@ def main():
     from pmf_tpu_torch.data.synthetic import make_inputs
     from pmf_tpu_torch.ops import kernels
 
-    t0 = time.perf_counter()
+    t_run = t0 = time.perf_counter()
     so = kernels.build()
     kernels.load()
     print(f"[build] {so.name} in {time.perf_counter() - t0:.1f} s")
@@ -996,16 +1191,36 @@ def main():
     check_epmf_reference(dev)
     launches_epmf = epmf_main_path(dev, cfg_e, batch_e, raw_e, smi)
     launches_epmf_train = epmf_train(dev, smi)
+    del batch_e
+    t_range = time.perf_counter()
+
+    from pmf_tpu_torch.data.synthetic import make_range_inputs
+
+    raw_r = make_range_inputs(np.random.default_rng(2), RB, RN, RN - 10000)
+    batch_r = on(raw_r, dev)
+    range_numbers = {"zbuffer_keys": check_range_kernels(dev, batch_r, smi),
+                     "rasterize_zbuffer": {}}   # K2 is not on the range path
+    check_salsanext_reference(dev)
+    launches_salsanext = salsanext_main_path(dev, batch_r, raw_r, smi)
+    launches_salsanext_train = salsanext_train(dev, smi)
+    print(f"[time] phases 1-7 {t_range - t_run:.1f} s, phase 8 {time.perf_counter() - t_range:.1f} s "
+          "(the build included in phase 2)")
+    range_keys = ("range_max_abs_err", "range_ms", "range_device_ms", "range_plain_ms",
+                  "range_bound_ms", "range_bound_by", "range_library_ms")
     for e in entries:
         e["launches"] = launches[e["name"]]
         e["launches_train"] = launches_train[e["name"]]
         e["launches_epmf"] = launches_epmf[e["name"]]
         e["launches_epmf_train"] = launches_epmf_train[e["name"]]
+        e["launches_salsanext"] = launches_salsanext[e["name"]]
+        e["launches_salsanext_train"] = launches_salsanext_train[e["name"]]
         e.update(epmf_numbers[e["name"]])
+        e.update({k: range_numbers[e["name"]].get(k) for k in range_keys})
     keys = ("name", "route", "source", "replaces", "launches", "launches_train", "launches_epmf",
-            "launches_epmf_train", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms", "epmf_max_abs_err", "epmf_ms", "epmf_device_ms",
-            "epmf_plain_ms", "epmf_bound_ms", "epmf_bound_by", "epmf_library_ms")
+            "launches_epmf_train", "launches_salsanext", "launches_salsanext_train",
+            "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "epmf_max_abs_err", "epmf_ms", "epmf_device_ms", "epmf_plain_ms", "epmf_bound_ms",
+            "epmf_bound_by", "epmf_library_ms", *range_keys)
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
 from .jitter import color_jitter, color_jitter_fixed
-from .loader import kitti_sample_reader
+from .augment import AugmentConfig, PointAugParams, augment_pointcloud
+from .loader import kitti_sample_reader, range_sample_reader
 from .perspective_pipeline import (
     AugParams, PVConfig, build_batch, build_eval_sample_with_uproj, normalize_feature,
     pad_image, pad_points, point_depth, pv_config,
@@ -8,4 +9,8 @@ from .semantic_kitti import SemanticKitti
 from .perspective_pipeline_v2 import (
     V2AugParams, V2Config, build_v2_batch, build_v2_eval_sample_with_uproj, v2_config,
     view_config,
+)
+from .range_pipeline import (
+    RangeConfig, build_range_batch, build_range_sample_with_uproj, normalize_range_feature,
+    range_config, range_project,
 )

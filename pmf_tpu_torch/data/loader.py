@@ -1,5 +1,5 @@
 """Host-side scan readers (counterpart of `pmf_tpu/data/loader.py`; the
-numpy + PIL path of `kitti_sample_reader`)."""
+numpy + PIL path of `kitti_sample_reader`, and `range_sample_reader`)."""
 from __future__ import annotations
 
 from typing import Callable
@@ -26,5 +26,17 @@ def kitti_sample_reader(dataset, cfg: PVConfig) -> Callable[[int], dict]:
             "image": image, "img_h": img_h, "img_w": img_w,
             "index": np.int32(index),
         }
+
+    return read
+
+
+def range_sample_reader(dataset, cfg) -> Callable[[int], dict]:
+    """reader(index) → numpy sample dict for the range view (no image):
+    points [N, 4], labels [N] (train ids), valid [N], index."""
+
+    def read(index: int) -> dict:
+        pcd, sem, _ = dataset.loadDataByIndex(index)
+        points, labels, valid = pad_points(pcd, dataset.labelMapping(sem), cfg.n_points)
+        return {"points": points, "labels": labels, "valid": valid, "index": np.int32(index)}
 
     return read

@@ -2,8 +2,9 @@
 `pmf_tpu/data/perspective_pipeline.py`).
 
 Project the LiDAR points into the camera image, 2D-augment the view (train:
-horizontal flip → rotation → random crop → pad, with ColorJitter on the RGB;
-eval: centre crop → pad), and z-buffer the points into the network input:
+horizontal flip → rotation → random crop → pad, with ColorJitter on the RGB,
+after the 3D point augmentation when cfg.pcd_aug; eval: centre crop → pad),
+and z-buffer the points into the network input:
   feature [H, W, 8] = depth, x, y, z, intensity, R, G, B (lidar part normalized)
   mask    [H, W]    = projected-point occupancy
   label   [H, W]    = train-class id (0 = empty/ignore)
@@ -20,7 +21,7 @@ from __future__ import annotations
 
 import functools
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import NamedTuple
 
 import numpy as np
@@ -31,6 +32,7 @@ from ..ops.projection import perspective_project
 from ..ops.rasterize import rasterize_zbuffer
 from ..ops.scatter import fill_canvas, point_winner_flags, zbuffer_scatter_packed
 from ..ops.zbuffer import zbuffer_keys
+from .augment import AugmentConfig, PointAugParams, augment_pointcloud, draw_point_aug
 from .jitter import color_jitter_fixed, jitter_params
 
 ROT_DEG = 15.0   # the train view's rotation bound, degrees
@@ -53,6 +55,8 @@ class PVConfig:
     img_stds: tuple = (12.32, 11.47, 6.91, 0.86, 0.16)
     img_jitter: tuple | None = None  # train ColorJitter (brightness,
     # contrast, saturation) strengths; None: no jitter
+    pcd_aug: bool = False   # train: 3D point augmentation first
+    augment: AugmentConfig = field(default_factory=AugmentConfig)
 
     @property
     def train_crop(self):
@@ -64,14 +68,13 @@ class PVConfig:
 
 
 def pv_config(opts) -> PVConfig:
-    """The PVConfig of an experiment's Options: its `sensor` group, and the
-    ColorJitter strengths of `augmentation.img_jitter` (0.4 each unless set;
-    null turns it off). `sensor.pcd_aug: true` (3D point augmentation)
-    raises: it is not ported."""
+    """The PVConfig of an experiment's Options: its `sensor` group, and from
+    its `augmentation` group the ColorJitter strengths of `img_jitter` (0.4
+    each unless set; null turns it off) and the 3D point augmentation that
+    `sensor.pcd_aug: true` turns on."""
     sensor = opts.group("sensor")
-    if sensor.get("pcd_aug"):
-        raise NotImplementedError("3D point augmentation (sensor.pcd_aug) is not ported yet")
-    jitter = opts.group("augmentation").get("img_jitter", (0.4, 0.4, 0.4))
+    aug_group = opts.group("augmentation")
+    jitter = aug_group.get("img_jitter", (0.4, 0.4, 0.4))
     return PVConfig(
         canvas_h=int(sensor.get("canvas_h", 384)),
         canvas_w=int(sensor.get("canvas_w", 1248)),
@@ -84,7 +87,9 @@ def pv_config(opts) -> PVConfig:
         n_points=int(sensor.get("n_points", 131072)),
         img_mean=tuple(sensor.get("img_mean", PVConfig.img_mean)),
         img_stds=tuple(sensor.get("img_stds", PVConfig.img_stds)),
-        img_jitter=tuple(jitter) if jitter else None)
+        img_jitter=tuple(jitter) if jitter else None,
+        pcd_aug=bool(sensor.get("pcd_aug", False)),
+        augment=AugmentConfig.from_dict(aug_group))
 
 
 def pad_points(pcd: np.ndarray, sem_label: np.ndarray, n_points: int):
@@ -128,20 +133,22 @@ def _round_to_int32(x: torch.Tensor) -> torch.Tensor:
 
 class AugParams(NamedTuple):
     """The train view's parameters, one per scan: horizontal flip [B] bool,
-    rotation theta [B] float32 radians, crop offsets top/left [B] int; and
-    `jitter`, the ColorJitter (factors [B, 3], order [B, 3]) or None."""
+    rotation theta [B] float32 radians, crop offsets top/left [B] int;
+    `jitter`, the ColorJitter (factors [B, 3], order [B, 3]) or None; and
+    `points`, the 3D point augmentation (with cfg.pcd_aug) or None."""
     flip: torch.Tensor
     theta: torch.Tensor
     top: torch.Tensor
     left: torch.Tensor
     jitter: tuple | None = None
+    points: PointAugParams | None = None
 
 
 def _affine_params(generator: torch.Generator, img_h, img_w, cfg: PVConfig) -> AugParams:
     """Draw the train view's parameters from `generator`: flip with
     probability P_HFLIP, theta ~ U(-ROT_DEG, ROT_DEG) degrees, crop offsets
-    uniform over the image's slack around the train crop, and the
-    ColorJitter if cfg.img_jitter."""
+    uniform over the image's slack around the train crop, the ColorJitter
+    if cfg.img_jitter, and the point augmentation if cfg.pcd_aug."""
     if generator is None:
         raise ValueError("the train view draws its augmentation from a torch.Generator")
     B, dev = img_h.shape[0], img_h.device
@@ -152,7 +159,18 @@ def _affine_params(generator: torch.Generator, img_h, img_w, cfg: PVConfig) -> A
     left = torch.minimum((u[:, 3] * (slack_w + 1)).long(), slack_w)
     theta = (u[:, 1] * 2.0 - 1.0) * ROT_DEG * (math.pi / 180.0)
     jitter = jitter_params(generator, B, cfg.img_jitter, dev) if cfg.img_jitter else None
-    return AugParams(u[:, 0] < P_HFLIP, theta, top, left, jitter)
+    points = draw_point_aug(generator, B, cfg.augment, dev) if cfg.pcd_aug else None
+    return AugParams(u[:, 0] < P_HFLIP, theta, top, left, jitter, points)
+
+
+def augmented_points(points, cfg, points_aug: PointAugParams | None):
+    """The train view's points: augmented by `points_aug` when cfg.pcd_aug
+    (which then needs it), else as given."""
+    if not cfg.pcd_aug:
+        return points
+    if points_aug is None:
+        raise ValueError("cfg.pcd_aug needs the point augmentation's parameters")
+    return augment_pointcloud(points, cfg.augment, params=points_aug)
 
 
 def view_geometry(points, labels, valid, proj_matrix, image, img_h, img_w,
@@ -303,6 +321,7 @@ def _build_batch(points, labels, valid, proj_matrix, images, img_h, img_w,
     if train:
         aug = aug_override if aug_override is not None else \
             _affine_params(generator, img_h, img_w, cfg)
+        points = augmented_points(points, cfg, aug.points)
     H, W = (cfg.proj_ht, cfg.proj_wt) if train else (cfg.proj_h, cfg.proj_w)
     geometry = view_geometry(points, labels, valid, proj_matrix, images, img_h, img_w, cfg, aug)
     return fill_view(geometry, labels, H, W, cfg, return_points, fill, keys)

@@ -4,12 +4,12 @@
 The points are cropped by yaw (±45°) with no image-bound test and projected
 into the camera; their truncated integer pixels give a tight box around
 them, padded to at least the output size (below, and centred in width).
-Train: a random image scale (1.0-1.2) before the box, then a horizontal
-flip, a rotation about the box's centre and a random crop; eval: a centre
-crop. All of it is per-point coordinate arithmetic, so the points go
-straight into the fixed output window, and the RGB is one inverse-map
-sample of the image canvas: bilinear in train (after the ColorJitter), a
-separable integer gather at eval.
+Train: the 3D point augmentation when cfg.pcd_aug, a random image scale
+(1.0-1.2) before the box, then a horizontal flip, a rotation about the box's
+centre and a random crop; eval: a centre crop. All of it is per-point
+coordinate arithmetic, so the points go straight into the fixed output
+window, and the RGB is one inverse-map sample of the image canvas: bilinear
+in train (after the ColorJitter), a separable integer gather at eval.
 
 `build_v2_batch` fills a batch through the K2 rasterizer and, with
 `return_points`, gives the points' winner flags through K1;
@@ -20,7 +20,7 @@ its plain PyTorch version on the CPU.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import NamedTuple
 
 import torch
@@ -28,9 +28,11 @@ import torch
 from ..ops.projection import yaw_crop_project
 from ..ops.rasterize import rasterize_zbuffer
 from ..ops.zbuffer import zbuffer_keys
+from .augment import AugmentConfig, PointAugParams, draw_point_aug
 from .jitter import color_jitter_fixed, jitter_params
-from .perspective_pipeline import (PVConfig, _round_to_int32, fill_scan, fill_view, point_depth,
-                                   pv_config, saturating_int32, scan_sizes)
+from .perspective_pipeline import (PVConfig, _round_to_int32, augmented_points, fill_scan,
+                                   fill_view, point_depth, pv_config, saturating_int32,
+                                   scan_sizes)
 
 
 @dataclass(frozen=True)
@@ -52,18 +54,19 @@ class V2Config:
     img_mean: tuple = PVConfig.img_mean
     img_stds: tuple = PVConfig.img_stds
     img_jitter: tuple | None = None  # train ColorJitter strengths; None: off
+    pcd_aug: bool = False     # train: 3D point augmentation first
+    augment: AugmentConfig = field(default_factory=AugmentConfig)
 
 
 def v2_config(opts) -> V2Config:
     """The V2Config of an experiment's Options: its `PVconfig` group (the
     `sensor` group where there is none), with `pcd_mean`/`pcd_stds` as the
-    normalization, and the ColorJitter strengths of
-    `augmentation.img_jitter` (0.4 each unless set; null turns it off).
-    `pcd_aug: true` (3D point augmentation) raises: it is not ported."""
+    normalization, and from the `augmentation` group the ColorJitter
+    strengths of `img_jitter` (0.4 each unless set; null turns it off) and
+    the 3D point augmentation that `pcd_aug: true` turns on."""
     pv = opts.group("PVconfig") or opts.group("sensor")
-    if pv.get("pcd_aug"):
-        raise NotImplementedError("3D point augmentation (pcd_aug) is not ported yet")
-    jitter = opts.group("augmentation").get("img_jitter", (0.4, 0.4, 0.4))
+    aug_group = opts.group("augmentation")
+    jitter = aug_group.get("img_jitter", (0.4, 0.4, 0.4))
     return V2Config(
         canvas_h=int(pv.get("canvas_h", 384)),
         canvas_w=int(pv.get("canvas_w", 1248)),
@@ -74,7 +77,9 @@ def v2_config(opts) -> V2Config:
         n_points=int(pv.get("n_points", 131072)),
         img_mean=tuple(pv.get("pcd_mean", V2Config.img_mean)),
         img_stds=tuple(pv.get("pcd_stds", V2Config.img_stds)),
-        img_jitter=tuple(jitter) if jitter else None)
+        img_jitter=tuple(jitter) if jitter else None,
+        pcd_aug=bool(pv.get("pcd_aug", False)),
+        augment=AugmentConfig.from_dict(aug_group))
 
 
 def view_config(opts) -> PVConfig | V2Config:
@@ -86,14 +91,16 @@ def view_config(opts) -> PVConfig | V2Config:
 class V2AugParams(NamedTuple):
     """The train view's parameters, one per scan: image scale [B] float32,
     horizontal flip [B] bool, rotation theta [B] float32 radians, crop
-    offsets top/left [B] int into the padded box; and `jitter`, the
-    ColorJitter (factors [B, 3], order [B, 3]) or None."""
+    offsets top/left [B] int into the padded box; `jitter`, the
+    ColorJitter (factors [B, 3], order [B, 3]) or None; and `points`, the 3D
+    point augmentation (with cfg.pcd_aug) or None."""
     scale: torch.Tensor
     flip: torch.Tensor
     theta: torch.Tensor
     top: torch.Tensor
     left: torch.Tensor
     jitter: tuple | None = None
+    points: PointAugParams | None = None
 
 
 def _bbox(v, keep):
@@ -128,9 +135,13 @@ def v2_view_geometry(points, labels, valid, proj_matrix, image, img_h, img_w, cf
             raise ValueError("the train view draws its augmentation from a torch.Generator")
         u = torch.rand((B, 5), generator=generator, device=dev)
         jitter = jitter_params(generator, B, cfg.img_jitter, dev) if cfg.img_jitter else None
+        points_aug = draw_point_aug(generator, B, cfg.augment, dev) if cfg.pcd_aug else None
         scale = cfg.scale_min + u[:, 0] * (cfg.scale_max - cfg.scale_min)
     else:
+        points_aug = aug.points if train else None
         scale = aug.scale.float() if train else torch.ones(B, device=dev)
+    if train:
+        points = augmented_points(points, cfg, points_aug)
     b1 = lambda t: t[:, None]                                      # [B] → [B, 1]
 
     rows_f, cols_f, keep = yaw_crop_project(points[..., :3], proj_matrix, cfg.fov_left,
@@ -151,7 +162,7 @@ def v2_view_geometry(points, labels, valid, proj_matrix, image, img_h, img_w, cf
         crop = lambda v, slack: torch.minimum((v * (slack + 1)).long(), slack.long())
         aug = V2AugParams(scale, u[:, 1] < cfg.p_hflip,
                           (u[:, 2] * 2.0 - 1.0) * cfg.rot_deg * (math.pi / 180.0),
-                          crop(u[:, 3], slack_h), crop(u[:, 4], slack_w), jitter)
+                          crop(u[:, 3], slack_h), crop(u[:, 4], slack_w), jitter, points_aug)
 
     # the points: flip → rotate about the box centre → crop
     cy, cx = (max_h.float() - 1.0) / 2.0, (max_w.float() - 1.0) / 2.0

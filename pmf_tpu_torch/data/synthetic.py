@@ -38,3 +38,22 @@ def make_inputs(rng: np.random.Generator, batch: int = BATCH,
     img_h = np.full((batch,), h, np.int32)
     img_w = np.full((batch,), w, np.int32)
     return pts, labels, valid, proj, image, img_h, img_w
+
+
+def make_range_inputs(rng: np.random.Generator, batch: int, n_points: int,
+                      n_valid: int | None = None):
+    """(points [B, N, 4], labels [B, N], valid [B, N]) as numpy arrays: the
+    returns of a 64-beam sensor all around it, at 2-80 m and pitch -26° to
+    4° (a little beyond SalsaNext's 3°/-25° field of view), a tenth of them
+    copies of others (ties in the z-buffer), the first `n_valid` valid (all
+    by default) and the rest padding."""
+    r = rng.uniform(2, 80, (batch, n_points))
+    yaw = rng.uniform(-np.pi, np.pi, (batch, n_points))
+    pitch = np.deg2rad(rng.uniform(-26, 4, (batch, n_points)))
+    pts = np.stack([r * np.cos(pitch) * np.cos(yaw), r * np.cos(pitch) * np.sin(yaw),
+                    r * np.sin(pitch), rng.uniform(0, 1, (batch, n_points))], -1).astype(np.float32)
+    pts[:, n_points // 2:n_points // 2 + n_points // 10] = pts[:, :n_points // 10]
+    labels = rng.integers(0, 20, (batch, n_points)).astype(np.int32)
+    valid = np.zeros((batch, n_points), bool)
+    valid[:, :n_points if n_valid is None else n_valid] = True
+    return pts, labels, valid

@@ -15,7 +15,7 @@ from torch import nn
 from ..ops.resize import upsample_bilinear
 from .layers import BatchNorm2d, Conv2d, conv_bn, leaky_relu
 from .resnet import ResNetEncoder
-from .salsanext import ResBlock, ResContextBlock, UpBlock
+from .salsanext import ResBlock, ResContextBlock, SalsaNext, UpBlock
 
 
 class LeakyReLU(nn.Module):
@@ -171,14 +171,17 @@ class PMFNet(nn.Module):
 
 
 def build_model(opts) -> nn.Module:
-    """The PMFNet or EPMFNet of an experiment's Options (net_type, nclasses,
-    base_channels, img_backbone, compute_dtype), its weights at torch's
-    initialization."""
+    """The PMFNet, EPMFNet or SalsaNext (5 input channels) of an
+    experiment's Options (net_type, nclasses, base_channels, img_backbone,
+    compute_dtype), its weights at torch's initialization."""
     from .epmf import EPMFNet
 
+    dtype = torch.bfloat16 if opts.compute_dtype == "bfloat16" else torch.float32
+    if opts.net_type == "SalsaNext":
+        return SalsaNext(nclasses=opts.nclasses, base_channels=opts.base_channels,
+                         in_channels=5, dtype=dtype)
     nets = {"PMFNet": PMFNet, "EPMFNet": EPMFNet}
     if opts.net_type not in nets:
         raise NotImplementedError(f"{opts.net_type} is not ported yet")
-    dtype = torch.bfloat16 if opts.compute_dtype == "bfloat16" else torch.float32
     return nets[opts.net_type](nclasses=opts.nclasses, base_channels=opts.base_channels,
                                image_backbone=opts.img_backbone, dtype=dtype)

@@ -1,4 +1,4 @@
-"""Point-cloud → camera-image projection (counterpart of
+"""Point-cloud → camera-image and range-image projections (counterpart of
 `pmf_tpu/ops/projection.py`).
 
 The functions take fixed-size padded point buffers with a validity mask and
@@ -89,3 +89,34 @@ def yaw_crop_project(points, proj_matrix, fov_left: float = -math.pi / 4,
     uvw = _project(points, proj_matrix)
     w = torch.where(uvw[..., 2].abs() > 1e-9, uvw[..., 2], 1e-9)
     return uvw[..., 1] / w, uvw[..., 0] / w, keep
+
+
+def spherical_project(points, fov_up_deg: float, fov_down_deg: float, proj_h: int,
+                      proj_w: int, fov_left_deg: float = -180.0, fov_right_deg: float = 180.0,
+                      valid=None):
+    """The range-image projection: yaw -atan2(y, x) and pitch asin(z / r)
+    mapped onto a proj_h x proj_w grid spanning the field of view, floored
+    and clamped into it. The field of view's constants are Python doubles,
+    used in float32 operations, as pmf_tpu computes them. pmf_tpu's range
+    sqrt(x*x + y*y + z*z), whose sums XLA fuses, is within an ulp of
+    `vector_norm`'s.
+
+    points [..., N, >=3]. Returns px (column), py (row) [..., N] int32, the
+    range depth [..., N] float32 and keep (= valid, all True without it).
+    """
+    fov_up = fov_up_deg / 180.0 * math.pi
+    fov_down = fov_down_deg / 180.0 * math.pi
+    fov_v = abs(fov_up) + abs(fov_down)
+    fov_left = fov_left_deg / 180.0 * math.pi
+    fov_right = fov_right_deg / 180.0 * math.pi
+    fov_h = abs(fov_left) + abs(fov_right)
+
+    depth = torch.linalg.vector_norm(points[..., :3], dim=-1)
+    yaw = -torch.atan2(points[..., 1], points[..., 0])
+    pitch = torch.asin(torch.clamp(points[..., 2] / depth.clamp(min=1e-9), -1.0, 1.0))
+    proj_x = (yaw + abs(fov_left)) / fov_h * proj_w
+    proj_y = (1.0 - (pitch + abs(fov_down)) / fov_v) * proj_h
+    px = torch.clamp(torch.floor(proj_x), 0, proj_w - 1).to(torch.int32)
+    py = torch.clamp(torch.floor(proj_y), 0, proj_h - 1).to(torch.int32)
+    keep = torch.ones_like(px, dtype=torch.bool) if valid is None else valid
+    return px, py, depth, keep

@@ -1,11 +1,12 @@
-"""Deterministic z-buffer of points onto an image grid (per-scan path).
+"""Deterministic z-buffer of points onto an image grid.
 
 Counterpart of `pmf_tpu/ops/scatter.py`. The nearest point wins each pixel
 and the lowest point index wins ties, through one scatter-min of packed
 int32 keys (quantized depth << nbits | index). On CUDA the key image comes
 from the K1 kernel (`ops/zbuffer.py`); the fill is a plain gather of the
-winners' rows. `point_winner_flags` gives the train path's per-point winner
-flags, and `rasterize_unique` places per-point rows back on the canvas.
+winners' rows. A batch of scans takes one K1 launch. `point_winner_flags`
+gives the train path's per-point winner flags, and `rasterize_unique` places
+per-point rows back on the canvas.
 """
 from __future__ import annotations
 
@@ -41,11 +42,15 @@ def packed_keys(rows, cols, depth, keep, H: int, W: int, depth_quant: float):
 
 
 def zbuffer_scatter_packed(rows, cols, depth, keep, H: int, W: int,
-                           depth_quant: float = 1.0 / 64.0):
-    """rows/cols/depth/keep [N] → (winner [H, W] int32, -1 where empty;
-    mask [H, W] bool)."""
+                           depth_quant: float = 1.0 / 64.0, keys=zbuffer_keys):
+    """rows/cols/depth/keep [N], or [B, N] for a batch of scans → (winner
+    [..., H, W] int32, -1 where empty; mask [..., H, W] bool). The key image
+    of a batch is one call of `keys` (the K1 wrapper, or its plain version
+    where the two are compared)."""
     pix, key, nbits = packed_keys(rows, cols, depth, keep, H, W, depth_quant)
-    key_img = zbuffer_keys(pix[None].contiguous(), key[None].contiguous(), H, W)[0]
+    batch = pix.reshape(-1, pix.shape[-1])
+    key_img = keys(batch.contiguous(), key.reshape(batch.shape).contiguous(), H, W)
+    key_img = key_img.reshape(*pix.shape[:-1], H, W)
     mask = key_img != IMAX
     winner = torch.where(mask, key_img & ((1 << nbits) - 1), -1)
     return winner, mask
@@ -83,8 +88,8 @@ def rasterize_unique(pix, ok, values, H: int, W: int):
 
 def fill_canvas(values: torch.Tensor, winner: torch.Tensor, mask: torch.Tensor,
                 fill: float = 0.0) -> torch.Tensor:
-    """Each occupied pixel takes its winner's row of `values` [N, F]:
-    [H, W, F], `fill` at empty pixels."""
-    H, W = winner.shape
-    rows = values[winner.clamp(min=0).reshape(-1).long()].reshape(H, W, -1)
-    return torch.where(mask[..., None], rows, fill)
+    """Each occupied pixel takes its winner's row of `values` [..., N, F]
+    (a gather): [..., H, W, F], `fill` at empty pixels."""
+    flat = winner.clamp(min=0).reshape(*winner.shape[:-2], -1, 1).long()
+    rows = values.gather(-2, flat.expand(*flat.shape[:-1], values.shape[-1]))
+    return torch.where(mask[..., None], rows.reshape(*winner.shape, -1), fill)

@@ -1,5 +1,5 @@
-"""Train PMFNet or EPMFNet on SemanticKITTI (counterpart of
-`pmf_tpu/tools/train.py`).
+"""Train PMFNet, EPMFNet or SalsaNext (`net_type`) on SemanticKITTI
+(counterpart of `pmf_tpu/tools/train.py`).
 
 Usage:
   python -m pmf_tpu_torch.tools.train <config.yaml> [--val-only] [--debug]
@@ -8,7 +8,8 @@ Usage:
 The run directory is <save_path>/<dataset>-<net>-<backbone>-bs<bs>-lr<lr>-<id>
 (Options.run_dir): log/experiment.log, and under checkpoint/ the resume
 checkpoint (every epoch) and the best_{Acc,IOU,Recall,last}_model.pth
-snapshots, which `tools/infer_kitti.py --weights` loads. `checkpoint: <any
+snapshots, which `tools/infer_kitti.py --weights` loads (SalsaNext's:
+`tools/infer_salsanext.py --weights`). `checkpoint: <any
 value>` in the config resumes from the run directory's checkpoint. --debug
 runs one iteration per epoch. The run is on the card unless --device cpu is
 given.

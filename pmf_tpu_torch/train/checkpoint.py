@@ -5,8 +5,8 @@ torch.save:
   * best-per-metric snapshots `<dir>/best_{Acc,IOU,Recall,last}_model.pth`,
     each the model's state_dict, with the multi-task σ beside its tensors
     under `mt_sigma` when the run learns one (as pmf_tpu's snapshots keep
-    it among the params); `tools/infer_kitti.py --weights` loads them and
-    leaves `mt_sigma` out;
+    it among the params); `tools/infer_kitti.py --weights` (SalsaNext's:
+    `tools/infer_salsanext.py`) loads them and leaves `mt_sigma` out;
   * `partial_load`, the tolerant load that takes only the tensors whose name
     and shape match.
 """

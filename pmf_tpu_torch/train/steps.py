@@ -1,4 +1,5 @@
-"""PMF and EPMF train and eval steps (counterpart of `pmf_tpu/train/steps.py`).
+"""PMF, EPMF and SalsaNext train and eval steps (counterpart of
+`pmf_tpu/train/steps.py`).
 
   loss = focal(lidar) + λ·lovász(lidar) + focal(cam) + λ·lovász(cam)
        + γ·perception_aware(lidar, cam)
@@ -7,7 +8,8 @@ Lovász pair when the batch carries the points' winner flags, and the
 confusion matrices of both streams per batch. With `use_mtloss` (EPMF) the
 six terms are weighted instead by the learned σ of `multi_task_loss`, in
 the order [focal(cam), lovász(cam), perception(img), perception(pcd),
-focal(lidar), lovász(lidar)]. The model's parameters, its BN
+focal(lidar), lovász(lidar)]. SalsaNext, LiDAR only: focal + λ·lovász
+(image domain) and one confusion matrix. The model's parameters, its BN
 statistics and the optimizer's moments are the train state; a train step
 updates them in place.
 """
@@ -114,5 +116,54 @@ def make_pmf_eval_step(model, cfg: LossConfig, mt_sigma=None):
         if sample_valid is not None:
             valid = sample_valid[:, None, None].expand(label.shape)
         return _confusions(aux, lidar_pred, camera_pred, label, cfg.nclasses, valid), lidar_pred
+
+    return step
+
+
+def salsanext_losses(pred, label, cfg: LossConfig):
+    """(total, aux) of SalsaNext's [B, H, W, C] probabilities against the
+    range-image labels [B, H, W]: focal masked to labelled pixels (label >
+    0) + λ·lovász."""
+    alpha = torch.tensor(cfg.alpha, dtype=torch.float32, device=label.device)
+    loss_foc = focal_softmax_loss(pred, label, alpha, cfg.gamma_focal, label > 0)
+    loss_lov = lovasz_softmax_loss(pred, label, ignore=cfg.lovasz_ignore)
+    total = loss_foc + cfg.lambda_ * loss_lov
+    return total, {"loss": total, "loss_focal": loss_foc, "loss_lovasz": loss_lov}
+
+
+def make_salsanext_train_step(model, optimizer, cfg: LossConfig):
+    """step(feature [B, H, W, 5], label [B, H, W], generator=None) → aux:
+    forward in train mode (dropout from `generator`), `salsanext_losses`,
+    backward, one optimizer update; aux holds the detached loss terms and
+    the [C, C] confusion matrix."""
+
+    def step(feature, label, generator=None):
+        model.train()
+        optimizer.zero_grad()
+        pred = model(feature, generator)
+        total, aux = salsanext_losses(pred, label, cfg)
+        total.backward()
+        optimizer.step()
+        with torch.no_grad():
+            aux = {k: v.detach() for k, v in aux.items()}
+            aux["conf"] = confusion_matrix(argmax_last(pred), label, cfg.nclasses)
+            return aux
+
+    return step
+
+
+def make_salsanext_eval_step(model, cfg: LossConfig):
+    """step(feature, label, sample_valid=None) → (aux, pred) with the model
+    in eval mode; `sample_valid` [B] takes padded samples of a short last
+    batch out of the confusion matrix."""
+
+    @torch.inference_mode()
+    def step(feature, label, sample_valid=None):
+        model.eval()
+        pred = model(feature)
+        _, aux = salsanext_losses(pred, label, cfg)
+        valid = None if sample_valid is None else sample_valid[:, None, None].expand(label.shape)
+        aux["conf"] = confusion_matrix(argmax_last(pred), label, cfg.nclasses, valid)
+        return aux, pred
 
     return step

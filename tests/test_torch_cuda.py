@@ -305,3 +305,62 @@ def test_epmf_per_scan_path_replays_in_cuda_graph(cuda_device):
         eager = view()
         assert all(torch.equal(o, e) for o, e in zip(outs, eager))
         assert outs[1].sum() > 10000
+
+
+@pytest.mark.cuda
+def test_zbuffer_keys_kernel_at_the_range_batch(cuda_device):
+    """K1 at the SalsaNext range batch (8 scans of 131072 points, 17 index
+    bits, into 64x2048) with forced ties equals its plain version, eagerly
+    and replayed in a CUDA graph on another batch copied into its inputs."""
+    B, N, H, W = 8, 131072, 64, 2048
+    first, second = ([torch.from_numpy(a).to(cuda_device) for a in pix_keys_with_ties(s, B, N, H, W)]
+                     for s in (20, 21))
+    pix, key = (t.clone() for t in first)
+    before = tzbuf.zbuffer_keys.launches
+    got = tzbuf.zbuffer_keys(pix, key, H, W)
+    torch.cuda.synchronize()
+    assert tzbuf.zbuffer_keys.launches == before + 1
+    assert torch.equal(got, tzbuf.zbuffer_keys_plain(pix, key, H, W))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tzbuf.zbuffer_keys(pix, key, H, W)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tzbuf.zbuffer_keys(pix, key, H, W)
+    for p, k in (second, first):
+        pix.copy_(p)
+        key.copy_(k)
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, tzbuf.zbuffer_keys_plain(p, k, H, W))
+
+
+@pytest.mark.cuda
+def test_range_batch_kernel_fill_matches_plain(cuda_device):
+    """`build_range_batch` (eval, and train with the point augmentation
+    drawn from a CUDA generator) at 8 scans of 131072 points into 64x2048:
+    one K1 launch, and the features, labels and mask of the plain fill."""
+    from pmf_tpu_torch.data import AugmentConfig, RangeConfig, build_range_batch
+    from pmf_tpu_torch.data.range_pipeline import _build_range_batch
+    from pmf_tpu_torch.data.synthetic import make_range_inputs
+
+    B, N = 8, 131072
+    aug = AugmentConfig(p_flipy=0.5, p_transx=0.5, trans_xmin=-5, trans_xmax=5, p_rot_yaw=0.5,
+                        rot_yawmin=5, rot_yawmax=-5, p_rot_roll=0.5, rot_rollmin=-5,
+                        rot_rollmax=5)
+    cfg = RangeConfig(n_points=N, augment=aug)
+    batch = [torch.from_numpy(a).to(cuda_device)
+             for a in make_range_inputs(np.random.default_rng(22), B, N, N - 8000)]
+    for train in (False, True):
+        gen = lambda: torch.Generator(device=cuda_device).manual_seed(23)
+        before = tzbuf.zbuffer_keys.launches
+        got = build_range_batch(*batch, cfg, train, gen())
+        torch.cuda.synchronize()
+        assert tzbuf.zbuffer_keys.launches == before + 1
+        want = _build_range_batch(*batch, cfg, train, gen(), keys=tzbuf.zbuffer_keys_plain)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert got[0].shape == (B, 64, 2048, 5) and got[2].sum() > B * 50000

@@ -98,7 +98,8 @@ def _stop(*args, **kwargs):
 def test_v2_config_matches_both_jax_readers(monkeypatch):
     """`v2_config` of the shipped epmf_kitti.yaml against the V2Config that
     pmf_tpu's eval CLI and its trainer build from it (each stopped right
-    after, before it reads a dataset)."""
+    after, before it reads a dataset); `pcd_aug` turns the point
+    augmentation of the `augmentation` group on."""
     got = tdata.v2_config(load_options(EPMF_KITTI))
     jopts = jload_options(EPMF_KITTI)
     inf = jinfer.Inference.__new__(jinfer.Inference)
@@ -112,17 +113,19 @@ def test_v2_config_matches_both_jax_readers(monkeypatch):
     monkeypatch.setattr(jtrainer, "kitti_sample_reader", _stop)
     with pytest.raises(_Stop):
         trainer._init_data()
+    as_value = lambda v: dataclasses.asdict(v) if dataclasses.is_dataclass(v) else v
     for field in dataclasses.fields(tdata.V2Config):
-        if field.name != "img_jitter":
-            assert getattr(got, field.name) == getattr(inf.pv_cfg, field.name), field.name
-        assert getattr(got, field.name) == getattr(trainer.v2_cfg, field.name), field.name
+        value = as_value(getattr(got, field.name))
+        if field.name not in ("img_jitter", "augment"):   # train-only: the eval CLI's defaults
+            assert value == as_value(getattr(inf.pv_cfg, field.name)), field.name
+        assert value == as_value(getattr(trainer.v2_cfg, field.name)), field.name
     assert (got.proj_h, got.proj_w, got.n_points) == (320, 1280, 131072)
     assert got.img_jitter == (0.4, 0.4, 0.4) and inf.pv_cfg.img_jitter is None
     assert tdata.view_config(load_options(EPMF_KITTI)) == got
     opts = load_options(EPMF_KITTI)
+    assert not got.pcd_aug and got.augment.p_flipy == 0.5
     opts.config["PVconfig"]["pcd_aug"] = True
-    with pytest.raises(NotImplementedError):
-        tdata.v2_config(opts)
+    assert tdata.v2_config(opts).pcd_aug
 
 
 def _jax_draws(key, arrays, cfg, B):

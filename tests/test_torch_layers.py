@@ -151,6 +151,7 @@ def _imports(path: pathlib.Path):
 def test_port_imports_no_jax_flax_or_pmf_tpu():
     files = sorted((REPO / "pmf_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
+    assert {"augment.py", "range_pipeline.py", "infer_salsanext.py"} <= {f.name for f in files}
     banned = ("jax", "flax", "pmf_tpu", "torchvision")
     bad = [(str(f.relative_to(REPO)), m) for f in files for m in _imports(f)
            if any(m == b or m.startswith(b + ".") for b in banned)]

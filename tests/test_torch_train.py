@@ -213,8 +213,8 @@ def test_train_view_matches_jax(kitti_samples):
 def test_train_view_jitter_and_generator(kitti_samples):
     """ColorJitter in the view is the jitter of the image canvas first; a
     drawn view is reproduced by its generator's seed; a train view without
-    a generator raises, and so does a config asking for the 3D point
-    augmentation, which is not ported."""
+    a generator raises; `sensor.pcd_aug` turns the 3D point augmentation of
+    the `augmentation` group on."""
     cfg = tdata.PVConfig(**CFG, img_jitter=(0.4, 0.4, 0.4))
     ts = list(map(torch.from_numpy, kitti_samples))
     f = torch.tensor([[1.3, 0.7, 1.2], [0.8, 1.35, 0.65], [1.1, 1.0, 0.9]])
@@ -231,10 +231,10 @@ def test_train_view_jitter_and_generator(kitti_samples):
     assert not torch.equal(a[0], c[0])
     with pytest.raises(ValueError):
         tdata.build_batch(*ts, cfg, train=True)
-    opts = Options(config={"sensor": {**CFG, "pcd_aug": True}})
-    with pytest.raises(NotImplementedError):
-        tdata.pv_config(opts)
+    opts = Options(config={"sensor": {**CFG, "pcd_aug": True}, "augmentation": {"p_flipy": 0.5}})
+    assert tdata.pv_config(opts).pcd_aug and tdata.pv_config(opts).augment.p_flipy == 0.5
     opts.config["sensor"]["pcd_aug"] = False
+    assert not tdata.pv_config(opts).pcd_aug
     assert tdata.pv_config(opts).img_jitter == (0.4, 0.4, 0.4)
 
 
