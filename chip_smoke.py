@@ -66,7 +66,25 @@ Phases, each of which ends the run with a non-zero exit on failure:
      point augmentation, reversed yaw bounds included), 2 warm-up and 8
      timed steps and one validation pass, checked as (6c); ms/step, the
      step split, the peak memory (`launches_salsanext_train`). TF32 is off
-     for the whole run, so float32 convolutions run in float32.
+     for the whole run, so float32 convolutions run in float32;
+  9. nuScenes (configs/experiments/*_nuscenes.yaml at full width, 17
+     classes, on keyframes of data/synthetic.py: make_nuscenes_inputs, six
+     cameras of 65536-point scans): (a) K2 at the PMF train view (3 items,
+     640x960, 64-bit keys) and K1 on one eval item (896x1600, 16 index
+     bits), each with forced ties held to its plain version exactly and
+     timed as in phase 3 (`nusc_*` keys), and the point Lovász's winner
+     flags (K1) against K2's mask and labels; (b) a small PMFNet on the
+     "cam" view, a small EPMFNet on the camera-frame V2 view with each
+     camera's fovs, card vs CPU as phase 4, and one float32 PMF nuScenes
+     train step as 6(b); (c) PMF-ResNet34 eval (bf16, 896x1600):
+     NuscenesInference.run over 2 keyframes with KNN, 12 K1 launches,
+     ms/keyframe and the merged coverage, then the batched validation view
+     at batch 4 (K2, scans/s) (`launches_nusc`); (d) the PMF nuScenes
+     Trainer (batch 3, 640x960, point Lovász; `launches_nusc_train`); (e)
+     one keyframe through NuscenesInference's EPMF branch at 640x1280
+     (`launches_nusc_epmf`), one EPMF train step at batch 6, 320x1088, with
+     its peak memory, and one scan through SalsaNextInference's nuScenes
+     branch at 32x2048 (`launches_nusc_salsanext`).
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Without a CUDA card the script exits 1 and
@@ -88,6 +106,12 @@ TH, TW = 256, 1024          # the train view (bench.py:67, pmf_kitti.yaml proj_h
 HE, WE, NE = 320, 1280, 131072  # EPMF's V2 view and point buffer (epmf_kitti.yaml PVconfig)
 BT, BV = 2, 4               # EPMF's train and validation batches (epmf_kitti.yaml batch_size)
 RH, RW, RN, RB = 64, 2048, 131072, 8  # SalsaNext's range view and batch (salsanext_kitti.yaml)
+# nuScenes (configs/experiments/*_nuscenes.yaml): PMF's canvas, eval view, points, train view
+# and batches; EPMF's eval and train views and train batch; SalsaNext's range view
+NCH, NCW, NH, NW, NN = 900, 1600, 896, 1600, 65536
+NTH, NTW, NBT, NBV = 640, 960, 3, 4
+EH, EW, ETH, ETW, EBT = 640, 1280, 320, 1088, 6
+SH, SW = 32, 2048
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 
@@ -606,11 +630,12 @@ def check_train_view(dev, batch):
           f"pt_won); {int(m.sum())} occupied pixels, {labelled} labelled = labelled winners")
 
 
-def train_step_run(model, dev, batch, mt_sigma=None):
+def train_step_run(model, dev, batch, mt_sigma=None, nclasses=20):
     """One train step of `model` on `batch` moved to `dev` (PMFNet and
     EPMFNet: make_pmf_train_step, hybrid optimizer, with `mt_sigma` the
-    multi-task loss, σ in the AdamW group; SalsaNext: its step and adamw):
-    (aux, gradients by name, BN running statistics)."""
+    multi-task loss, σ in the AdamW group; SalsaNext: its step and adamw),
+    `nclasses` classes, class 0 ignored: (aux, gradients by name, BN running
+    statistics)."""
     from pmf_tpu_torch.models import SalsaNext
     from pmf_tpu_torch.train import (HybridOptimizer, LossConfig, adamw, make_pmf_train_step,
                                      make_salsanext_train_step)
@@ -618,7 +643,8 @@ def train_step_run(model, dev, batch, mt_sigma=None):
     feature, label, points = (t.to(dev) if torch.is_tensor(t) else
                               None if t is None else tuple(x.to(dev) for x in t) for t in batch)
     extra = [] if mt_sigma is None else [torch.nn.Parameter(mt_sigma.to(dev, copy=True))]
-    cfg = LossConfig(alpha=tuple([0.0] + [1.0] * 19), use_mtloss=bool(extra))
+    cfg = LossConfig(nclasses=nclasses, alpha=tuple([0.0] + [1.0] * (nclasses - 1)),
+                     use_mtloss=bool(extra))
     if isinstance(model, SalsaNext):
         aux = make_salsanext_train_step(model, adamw(model, lambda step: 1e-3), cfg)(feature, label)
     else:
@@ -664,7 +690,8 @@ def check_train_reference(dev):
                     model, (f, lab, pts))
 
 
-def hold_train_step(dev, tag, model, batch, mt_sigma=None, stats_in_float64=False):
+def hold_train_step(dev, tag, model, batch, mt_sigma=None, stats_in_float64=False,
+                    nclasses=20):
     """One train step of `model` on `batch` on the card against the CPU,
     held as `check_train_reference` says; with `stats_in_float64` the BN
     statistics are held in the float64 step too (the float32 ones printed)."""
@@ -672,10 +699,11 @@ def hold_train_step(dev, tag, model, batch, mt_sigma=None, stats_in_float64=Fals
     model64.dtype = torch.float64
     sigma64 = None if mt_sigma is None else mt_sigma.double()
     cpu = torch.device("cpu")
-    aux_c, g_c, s_c = train_step_run(copy.deepcopy(model), cpu, batch, mt_sigma)
-    aux_d, g_d, s_d = train_step_run(copy.deepcopy(model).to(dev), dev, batch, mt_sigma)
-    _, g64_c, s64_c = train_step_run(copy.deepcopy(model64), cpu, batch, sigma64)
-    _, g64_d, s64_d = train_step_run(copy.deepcopy(model64).to(dev), dev, batch, sigma64)
+    run = lambda m, d, sigma: train_step_run(m, d, batch, sigma, nclasses)
+    aux_c, g_c, s_c = run(copy.deepcopy(model), cpu, mt_sigma)
+    aux_d, g_d, s_d = run(copy.deepcopy(model).to(dev), dev, mt_sigma)
+    _, g64_c, s64_c = run(copy.deepcopy(model64), cpu, sigma64)
+    _, g64_d, s64_d = run(copy.deepcopy(model64).to(dev), dev, sigma64)
 
     loss_err = max(abs(aux_d[k].item() - aux_c[k].item()) / abs(aux_c[k].item())
                    for k in aux_c if k not in ("conf", "conf_cam"))
@@ -757,13 +785,15 @@ def full_width_train(dev, smi):
                       ("rasterize_zbuffer", "zbuffer_keys"))
 
 
-def train_path(dev, smi, tag, net, opts, raw, size_train, size_val, kernels_of_path):
+def train_path(dev, smi, tag, net, opts, raw, size_train, size_val, kernels_of_path,
+               model=None):
     """The Trainer of `opts` on the in-memory scans `raw` (2 train batches
     an epoch, 1 validation batch): 2 warm-up and 8 timed steps, one
     validation pass, the checks of (6c) (and σ trained, with the
     multi-task loss), a step split by CUDA events and a profiled step.
-    Returns the kernels' launch counts over the train and validation runs;
-    each of `kernels_of_path` must have been launched."""
+    It trains `model` (on `dev`), or the net of `opts` with random weights
+    from a seed. Returns the kernels' launch counts over the train and
+    validation runs; each of `kernels_of_path` must have been launched."""
     from pmf_tpu_torch.models import build_model, random_weights
     from pmf_tpu_torch.ops import rasterize, zbuffer
     from pmf_tpu_torch.train import Trainer, pmf_losses, salsanext_losses
@@ -772,9 +802,11 @@ def train_path(dev, smi, tag, net, opts, raw, size_train, size_val, kernels_of_p
     bt, bv = opts.batch_size
     (th, tw), (vh, vw) = size_train, size_val
     reader = scan_reader(raw, 2 * bt)
-    torch.manual_seed(0)
-    model = random_weights(build_model(opts), seed=0).to(dev)
-    trainer = Trainer(opts, model, reader, 2 * bt, reader, bv, dev, [0.0] + [1.0] * 19)
+    if model is None:
+        torch.manual_seed(0)
+        model = random_weights(build_model(opts), seed=0).to(dev)
+    trainer = Trainer(opts, model, reader, 2 * bt, reader, bv, dev,
+                      [0.0] + [1.0] * (opts.nclasses - 1))
     before = {k: v.clone() for k, v in model.state_dict().items()}
     sigma0 = None if trainer.mt_sigma is None else trainer.mt_sigma.detach().clone()
 
@@ -1146,6 +1178,375 @@ def salsanext_train(dev, smi):
                       (RH, RW), (RH, RW), ("zbuffer_keys",))
 
 
+def nusc_opts(net: str, **kw):
+    """Options of configs/experiments/{pmf,epmf,salsanext}_nuscenes.yaml as
+    shipped, the groups the port reads written out (this script reads no
+    YAML): base 32, 17 classes."""
+    from pmf_tpu_torch.config import Options
+
+    mean, stds = [12.12, 10.88, 0.23, -1.04, 0.21], [12.32, 11.47, 6.91, 0.86, 0.16]
+    knn = {"KNN": {"params": {"knn": 5, "search": 5, "sigma": 1.0, "cutoff": 1.0}}}
+    aug = {"p_flipx": 0.0, "p_flipy": 0.5, "p_transx": 0.5, "trans_xmin": -5, "trans_xmax": 5,
+           "p_transy": 0.5, "trans_ymin": -3, "trans_ymax": 3, "p_transz": 0.5,
+           "trans_zmin": -1, "trans_zmax": 0.0, "p_rot_roll": 0.5, "rot_rollmin": -5,
+           "rot_rollmax": 5, "p_rot_pitch": 0.5, "rot_pitchmin": -5, "rot_pitchmax": 5,
+           "p_rot_yaw": 0.5, "rot_yawmin": 5, "rot_yawmax": -5}
+    if net == "PMFNet":
+        config = {"sensor": {"canvas_h": NCH, "canvas_w": NCW, "proj_h": NH, "proj_w": NW,
+                             "proj_ht": NTH, "proj_wt": NTW, "h_pad": 0, "w_pad": 0,
+                             "n_points": NN, "pcd_aug": False, "img_mean": mean,
+                             "img_stds": stds},
+                  "augmentation": dict(aug, img_jitter=[0.4, 0.4, 0.4])}
+        opts = dict(batch_size=(NBT, NBV), compute_dtype="bfloat16")
+    elif net == "EPMFNet":
+        config = {"PVconfig": {"canvas_h": NCH, "canvas_w": NCW, "proj_h": EH, "proj_w": EW,
+                               "proj_ht": ETH, "proj_wt": ETW, "n_points": NN,
+                               "img_jitter": [0.4, 0.4, 0.4],
+                               "pcd_mean": [12.87, 0.01, 0.44, 11.97, 19.07],
+                               "pcd_stds": [13.21, 6.05, 1.96, 12.5, 21.23]},
+                  "augmentation": dict(aug, img_jitter=[0.4, 0.4, 0.4]),
+                  "use_mtloss": True, "point_lovasz": False}
+        opts = dict(batch_size=(EBT, 10), compute_dtype="bfloat16")
+    else:
+        config = {"sensor": {"proj_h": SH, "proj_w": SW, "fov_up": 10.0, "fov_down": -30.0,
+                             "fov_left": -180.0, "fov_right": 180.0, "n_points": NN,
+                             "img_mean": mean, "img_stds": stds}, "augmentation": aug}
+        opts = dict(batch_size=(12, 12), gamma=0.0)
+    config["post"] = knn
+    return Options(config=config, dataset="nuScenes", net_type=net, nclasses=17,
+                   base_channels=32, **{**opts, **kw})
+
+
+def items_reader(raw):
+    """reader(i) → the numpy sample dict of item i of `raw` (the arrays of
+    `make_nuscenes_inputs`), as `nuscenes_sample_reader` gives it."""
+    keys = ("points", "labels", "valid", "proj_matrix", "image", "img_h", "img_w")
+    return lambda i: {k: a[i] for k, a in zip(keys, raw)}
+
+
+def check_nuscenes_kernels(dev, batch, smi):
+    """9(a): K2 at the PMF nuScenes train view's own inputs (3 items of
+    65536 points into 640x960, F=6: 64-bit keys) and K1 on one eval item
+    (65536 points into 896x1600: 16 index bits, depth clipped at 512 m), each
+    with forced ties, held to its plain version exactly and timed as in
+    phase 3 (`nusc_` keys); then the train view's winner flags (K1) against
+    K2's mask and labels at that batch."""
+    from pmf_tpu_torch.data import build_batch, pv_config
+    from pmf_tpu_torch.data.perspective_pipeline import view_geometry
+    from pmf_tpu_torch.ops.scatter import packed_keys
+
+    cfg = pv_config(nusc_opts("PMFNet"))
+    train3 = [t[:NBT] for t in batch]
+    aug = fixed_aug(NBT, dev, top=(NCH - NTH) // 3, left=(NCW - NTW) // 3)._replace(jitter=None)
+    rows, cols, keep, depth, vals, _ = view_geometry(*train3, cfg, aug)
+    rows, cols, depth, keep = force_ties(rows, cols, depth, keep, seed=4, h=NTH)
+    vals = vals.contiguous()
+    err = hold_rasterize("nuScenes PMF train view, 64-bit keys, forced ties", rows, cols, depth,
+                         keep, vals, NTH, NTW)
+    k2 = {"max_abs_err": err, **rasterize_numbers(rows, cols, depth, keep, vals, NTH, NTW)}
+
+    rows, cols, keep, depth, _, _ = view_geometry(*(t[:1] for t in batch), cfg)
+    rows, cols, depth, keep = force_ties(rows, cols, depth, keep, seed=5, h=NH)
+    pix, key, nbits = packed_keys(rows, cols, depth, keep, NH, NW, 1 / 64)
+    p1, k1 = pix.contiguous(), key.contiguous()
+    err = hold_keys(f"nuScenes PMF eval item, {nbits} index bits", p1, k1, NH, NW)
+    k1_numbers = {"max_abs_err": err, **keys_numbers(p1, k1, NH, NW, int(keep.sum()))[0]}
+    out = {}
+    for name, numbers in (("rasterize_zbuffer", k2), ("zbuffer_keys", k1_numbers)):
+        out[name] = {"nusc_" + k: v for k, v in numbers.items()}
+        print_numbers(name, out[name], smi, "nusc_")
+
+    with torch.no_grad():
+        _, mask, lab, (pix, plab, won) = build_batch(*train3, cfg, True, aug_override=aug,
+                                                     return_points=True)
+    hw = NTH * NTW
+    win_pix = torch.where(won, pix.long(), hw)
+    hit = torch.zeros((NBT, hw + 1), dtype=torch.bool, device=dev).scatter_(1, win_pix, True)
+    lab_at = torch.cat([lab.reshape(NBT, -1), lab.new_zeros((NBT, 1))], 1).gather(1, win_pix)
+    if not (torch.equal(hit[:, :hw].reshape(mask.shape), mask)
+            and torch.equal(lab_at[won], plab[won])):
+        fail("[nusc] (a) the point Lovász's winner flags (K1) disagree with K2's mask or labels")
+    far = float(train3[0][..., :3].norm(dim=-1).max())
+    print(f"[nusc] (a) train view B={NBT} N={NN} {NTH}x{NTW}: K1's winner flags pick one point "
+          f"per K2 pixel, with its label ({int(mask.sum())} pixels; ranges <= {far:.1f} m, "
+          "inside K1's 512 m clip)")
+    return out
+
+
+def check_nuscenes_reference(dev):
+    """9(b): a small PMFNet (17 classes, base 8) on the "cam" view and a
+    small EPMFNet on the camera-frame V2 view with each camera's fovs, in
+    float32 on the card against the CPU as phase 4 holds them; then one
+    float32 PMF nuScenes train step (point Lovász) as 6(b)."""
+    from pmf_tpu_torch.data import PVConfig, V2Config, build_batch, build_v2_batch
+    from pmf_tpu_torch.data.synthetic import make_nuscenes_inputs, nuscenes_camera_frame
+    from pmf_tpu_torch.models import EPMFNet, PMFNet, random_weights
+
+    h, w = 64, 160
+    raw = make_nuscenes_inputs(np.random.default_rng(14), 1, 4096, 3000, h, w)
+    two = [a[:2] for a in raw]
+    cfg = PVConfig(canvas_h=h, canvas_w=w, proj_h=h, proj_w=128, proj_ht=48, proj_wt=96,
+                   h_pad=0, w_pad=0, n_points=4096, projection="cam")
+    torch.manual_seed(14)
+    model = random_weights(PMFNet(nclasses=17, base_channels=8), seed=14)
+    hold_card_to_cpu(dev, "[nusc] (b) PMF \"cam\" view", lambda d: build_batch(*on(two, d), cfg),
+                     model)
+
+    points, proj, fovs = nuscenes_camera_frame(raw[0], h, w)
+    v2 = [points[2:4], raw[1][2:4], raw[2][2:4], proj[2:4], *(a[2:4] for a in raw[4:])]
+    cfg_v2 = V2Config(canvas_h=h, canvas_w=w, proj_h=h, proj_w=128, n_points=4096,
+                      cam_frame=True)
+    model = random_weights(EPMFNet(nclasses=17, base_channels=8), seed=15)
+    hold_card_to_cpu(dev, "[nusc] (b) EPMF camera-frame V2 view with fovs",
+                     lambda d: build_v2_batch(*on(v2, d), cfg_v2,
+                                              fovs=torch.from_numpy(fovs[2:4]).to(d)), model)
+
+    f, _, lab, pts = build_batch(*map(torch.from_numpy, two), cfg, train=True,
+                                 aug_override=fixed_aug(2, "cpu", top=4, left=20),
+                                 return_points=True)
+    model = random_weights(PMFNet(nclasses=17, base_channels=8, dropout_rate=0.0), seed=16)
+    hold_train_step(dev, "[nusc] (b) f32 PMF nuScenes train step card vs CPU at 2x48x96, base 8",
+                    model, (f, lab, pts), nclasses=17)
+
+
+def nusc_model(net: str, dev):
+    """The net of its nuScenes config (`nusc_opts`) with random weights from
+    a seed, on `dev`."""
+    from pmf_tpu_torch.models import build_model, random_weights
+
+    torch.manual_seed(0)
+    return random_weights(build_model(nusc_opts(net)), seed=0).to(dev)
+
+
+def hold_item_keys(inference, raw, tag: str):
+    """K1 on the keys of each item of `raw`'s first keyframe at
+    `inference`'s eval view (a `NuscenesInference`: PMF's "cam" view or
+    EPMF's V2 view), held to its plain version bit for bit."""
+    from pmf_tpu_torch.data.perspective_pipeline import scan_sizes, view_geometry
+    from pmf_tpu_torch.data.perspective_pipeline_v2 import v2_view_geometry
+    from pmf_tpu_torch.ops.scatter import packed_keys
+
+    cfg, dev = inference.cfg, inference.device
+    geometry = v2_view_geometry if inference.is_v2 else view_geometry
+    for i in range(6):
+        s = items_reader(raw)(i)
+        one = lambda k: torch.as_tensor(s[k], device=dev)[None]
+        rows, cols, keep, depth, _, _ = geometry(
+            one("points"), one("labels"), one("valid"), one("proj_matrix"), one("image"),
+            *scan_sizes(int(s["img_h"]), int(s["img_w"]), dev), cfg)
+        pix, key, nbits = packed_keys(rows, cols, depth, keep, cfg.proj_h, cfg.proj_w, 1 / 64)
+        hold_keys(f"{tag} NuscenesInference item {i}, {nbits} index bits, {int(keep.sum())} "
+                  "points kept", pix.contiguous(), key.contiguous(), cfg.proj_h, cfg.proj_w)
+
+
+def nuscenes_inference(dev, model, net: str, raw, smi, tag: str):
+    """`NuscenesInference.run` of `model` (a `net` at the full width of its
+    nuScenes config, KNN on) over the keyframes of `raw`, the kernels'
+    launches counted around it alone; ms/keyframe, the merged coverage, a
+    profiled keyframe's device busy time; then K1 held on the first
+    keyframe's items (`hold_item_keys`). Returns the launch counts."""
+    from pmf_tpu_torch.ops import rasterize, zbuffer
+    from pmf_tpu_torch.tools.infer_nuscenes import NuscenesInference
+
+    opts = nusc_opts(net)
+    n = len(raw[0])
+    make = lambda k: NuscenesInference(opts, model, items_reader(raw), k, dev,
+                                       [f"frame{i // 6}" for i in range(n)], use_knn=True)
+    with torch.inference_mode():
+        make(6).run()                                     # warm-up keyframe
+    torch.cuda.synchronize()
+    zbuffer.zbuffer_keys.launches = 0
+    rasterize.rasterize_zbuffer.launches = 0
+    report = make(n).run()
+    torch.cuda.synchronize()
+    launches = {"zbuffer_keys": zbuffer.zbuffer_keys.launches,
+                "rasterize_zbuffer": rasterize.rasterize_zbuffer.launches}
+    if launches["zbuffer_keys"] != n or report["frames"] != n // 6:
+        fail(f"{tag} NuscenesInference ran {report['frames']} keyframes with K1 launched "
+             f"{launches['zbuffer_keys']} times for {n} items")
+    if not (np.isfinite(report["mIoU"]) and 0 < report["coverage"] < 1):
+        fail(f"{tag} NuscenesInference report: {report}")
+    hold_item_keys(make(6), raw, tag)
+    profile_step(lambda: make(6).run(), smi, name=f"one keyframe of NuscenesInference.run ({net})")
+    print(f"{tag} NuscenesInference.run ({net}, bf16, KNN, 6 cameras of {NN} points): "
+          f"{report['ms_per_frame']:.2f} ms/keyframe over {report['frames']} keyframes (host and "
+          f"device, after one warm-up keyframe); merged coverage {report['coverage']:.4f} of the "
+          f"points; point mIoU {report['mIoU']:.4f}; launches {json.dumps(launches)} on {smi}")
+    return launches
+
+
+def nuscenes_batched_eval(dev, model, raw, smi):
+    """9(c), second part: the batched validation view of PMF nuScenes
+    (build_batch "cam" → K2 → `model`, PMFNet → argmax) at batch 4, against
+    the same with the plain fill; scans/s. Returns the launch counts."""
+    from pmf_tpu_torch.data import build_batch, pv_config
+    from pmf_tpu_torch.data.perspective_pipeline import _build_batch
+    from pmf_tpu_torch.ops import argmax_last, rasterize, zbuffer
+
+    cfg = pv_config(nusc_opts("PMFNet"))
+    batch = on([a[:NBV] for a in raw], dev)
+
+    def batched():
+        f, m, lab = build_batch(*batch, cfg)
+        lidar, _ = model(f[..., :5], f[..., 5:8])
+        return f, m, lab, lidar, argmax_last(lidar)
+
+    zbuffer.zbuffer_keys.launches = 0
+    rasterize.rasterize_zbuffer.launches = 0
+    with torch.inference_mode():
+        f, m, lab, lidar, pred = batched()
+        torch.cuda.synchronize()
+        launches = {"zbuffer_keys": zbuffer.zbuffer_keys.launches,
+                    "rasterize_zbuffer": rasterize.rasterize_zbuffer.launches}
+        if launches["rasterize_zbuffer"] == 0:
+            fail(f"[nusc] (c) K2 was not launched on the batched view: {launches}")
+        if lidar.shape != (NBV, NH, NW, 17) or not torch.isfinite(lidar).all() \
+                or pred.unique().numel() < 2:
+            fail(f"[nusc] (c) batched probabilities {tuple(lidar.shape)}, finite "
+                 f"{bool(torch.isfinite(lidar).all())}, {pred.unique().numel()} classes")
+        plain = _build_batch(*batch, cfg, fill=rasterize.rasterize_zbuffer_plain)
+        if not all(torch.equal(x, y) for x, y in zip((f, m, lab), plain)):
+            fail("[nusc] (c) the batched view gives other features, mask or labels with the "
+                 "plain fill")
+        for _ in range(2):
+            batched()
+        times = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            batched()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        profile_step(batched, smi, name="eval batch (nuScenes build_batch+PMFNet+argmax)")
+    med = statistics.median(times)
+    print(f"[nusc] (c) batched eval build_batch(\"cam\")+PMFNet+argmax, batch {NBV}, {NH}x{NW}, "
+          f"{NN} points, bf16: kernel fill == plain fill; {int(m.sum())} occupied pixels; "
+          f"{NBV / med:.2f} scans/s (median of {len(times)} batches: {med * 1e3:.2f} ms, min "
+          f"{min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}) on {smi}")
+    return launches
+
+
+def epmf_nuscenes_train_step(dev, model, raw, smi):
+    """9(e): the EPMF nuScenes Trainer of `model` at epmf_nuscenes.yaml's
+    batch 6, 320x1088 (multi-task loss, image-domain Lovász): one warm-up and
+    one timed step, the kernels' launches counted around the timed step
+    alone, finite losses, the peak memory; then K2 held to its plain version
+    on the train view of the first EPMF batch with the trainer's draws.
+    Returns the launch counts."""
+    from pmf_tpu_torch.data import v2_config
+    from pmf_tpu_torch.data.perspective_pipeline_v2 import v2_view_geometry
+    from pmf_tpu_torch.ops import rasterize, zbuffer
+    from pmf_tpu_torch.train import Trainer, nuscenes_focal_alpha
+
+    opts = nusc_opts("EPMFNet", n_epochs=5, warmup_epochs=1)
+    trainer = Trainer(opts, model, items_reader(raw), EBT, items_reader(raw), EBT, dev,
+                      nuscenes_focal_alpha(17))
+    torch.cuda.reset_peak_memory_stats()
+    runs = [trainer.run(0, "Train")]
+    torch.cuda.synchronize()
+    zbuffer.zbuffer_keys.launches = 0
+    rasterize.rasterize_zbuffer.launches = 0
+    t0 = time.perf_counter()
+    runs.append(trainer.run(1, "Train"))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = {"zbuffer_keys": zbuffer.zbuffer_keys.launches,
+                "rasterize_zbuffer": rasterize.rasterize_zbuffer.launches}
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(v) for r in runs for k, v in r.items() if k.startswith("loss")):
+        fail(f"[nusc] (e) EPMF train step: non-finite losses {runs}")
+    if launches["rasterize_zbuffer"] == 0:
+        fail(f"[nusc] (e) K2 was not launched on the EPMF train step: {launches}")
+    rows, cols, keep, depth, vals, _ = v2_view_geometry(
+        *on([a[:EBT] for a in raw], dev), v2_config(opts), train=True,
+        generator=torch.Generator(device=dev).manual_seed(opts.seed))
+    hold_rasterize(f"[nusc] (e) EPMF train view with the trainer's draws, 64-bit keys, "
+                   f"{int(keep.sum())} points kept", rows, cols, depth, keep, vals.contiguous(),
+                   ETH, ETW)
+    print(f"[nusc] (e) EPMF nuScenes Trainer, bf16, batch {EBT}, {ETH}x{ETW} crop, {NN} points, "
+          f"multi-task loss: one step {ms:.2f} ms (after one warm-up step, host-inclusive); "
+          f"peak device memory {peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated); last "
+          f"loss {runs[-1]['Loss']:.4f}; launches {json.dumps(launches)} on {smi}")
+    return launches
+
+
+def salsanext_nuscenes_scan(dev, raw, smi):
+    """9(e): one scan through SalsaNextInference's nuScenes branch at
+    salsanext_nuscenes.yaml's 32x2048, fov +10/-30 (float32, KNN); then K1
+    held to its plain version on that scan's keys (65536 points into 65536
+    pixels). Returns the launch counts."""
+    from pmf_tpu_torch.models import build_model, random_weights
+    from pmf_tpu_torch.ops import rasterize, zbuffer
+    from pmf_tpu_torch.ops.projection import spherical_project
+    from pmf_tpu_torch.ops.scatter import packed_keys
+    from pmf_tpu_torch.tools.infer_salsanext import SalsaNextInference
+
+    opts = nusc_opts("SalsaNext")
+    torch.manual_seed(0)
+    model = random_weights(build_model(opts), seed=0).to(dev)
+    scan = {k: a[0] for k, a in zip(("points", "labels", "valid"), raw)}
+    inference = SalsaNextInference(opts, model, lambda i: scan, 1, dev, use_knn=True)
+    inference.run()                                       # warm-up
+    inference = SalsaNextInference(opts, model, lambda i: scan, 1, dev, use_knn=True)
+    zbuffer.zbuffer_keys.launches = 0
+    rasterize.rasterize_zbuffer.launches = 0
+    report = inference.run()
+    torch.cuda.synchronize()
+    launches = {"zbuffer_keys": zbuffer.zbuffer_keys.launches,
+                "rasterize_zbuffer": rasterize.rasterize_zbuffer.launches}
+    if launches["zbuffer_keys"] != 1 or not np.isfinite(report["mIoU"]):
+        fail(f"[nusc] (e) SalsaNextInference on nuScenes: {report}, launches {launches}")
+    cfg = inference.cfg
+    one = [torch.as_tensor(scan[k], device=dev)[None] for k in ("points", "valid")]
+    px, py, depth, keep = spherical_project(one[0], cfg.fov_up, cfg.fov_down, cfg.proj_h,
+                                            cfg.proj_w, cfg.fov_left, cfg.fov_right, one[1])
+    pix, key, nbits = packed_keys(py, px, depth, keep, cfg.proj_h, cfg.proj_w, 1 / 64)
+    hold_keys(f"[nusc] (e) SalsaNextInference scan, {nbits} index bits, {int(keep.sum())} points "
+              "kept", pix.contiguous(), key.contiguous(), cfg.proj_h, cfg.proj_w)
+    print(f"[nusc] (e) SalsaNextInference.run, nuScenes {SH}x{SW} fov +10/-30, float32, KNN: "
+          f"point mIoU {report['mIoU']:.4f}, {report['ms_per_scan']:.2f} ms/scan (forward to "
+          f"labels); launches {json.dumps(launches)} on {smi}")
+    return launches
+
+
+def nuscenes_phase(dev, smi):
+    """Phase 9: nuScenes. Returns the kernels' nuScenes numbers and launch
+    counts, by kernel name; prints the time of each part."""
+    from pmf_tpu_torch.data.synthetic import make_nuscenes_inputs
+
+    marks = [("", time.perf_counter())]
+    raw = make_nuscenes_inputs(np.random.default_rng(9), 2, NN, 34720 * NN // 65536, NCH, NCW)
+    frame = [a[:6] for a in raw]
+    marks.append(("data", time.perf_counter()))
+    out = check_nuscenes_kernels(dev, on(frame, dev), smi)
+    marks.append(("(a)", time.perf_counter()))
+    check_nuscenes_reference(dev)
+    marks.append(("(b)", time.perf_counter()))
+    pmf = nusc_model("PMFNet", dev)
+    counts = {"launches_nusc": [nuscenes_inference(dev, pmf, "PMFNet", raw, smi, "[nusc] (c)"),
+                                nuscenes_batched_eval(dev, pmf, raw, smi)]}
+    marks.append(("(c)", time.perf_counter()))
+    counts["launches_nusc_train"] = [train_path(
+        dev, smi, "[nusc] (d)", "PMF-ResNet34 nuScenes",
+        nusc_opts("PMFNet", n_epochs=5, warmup_epochs=1), frame, (NTH, NTW), (NH, NW),
+        ("rasterize_zbuffer", "zbuffer_keys"), model=pmf)]
+    del pmf
+    marks.append(("(d)", time.perf_counter()))
+    epmf = nusc_model("EPMFNet", dev)
+    counts["launches_nusc_epmf"] = [nuscenes_inference(dev, epmf, "EPMFNet", frame, smi,
+                                                       "[nusc] (e)")]
+    counts["launches_nusc_epmf_train"] = [epmf_nuscenes_train_step(dev, epmf, raw, smi)]
+    del epmf
+    counts["launches_nusc_salsanext"] = [salsanext_nuscenes_scan(dev, raw, smi)]
+    marks.append(("(e)", time.perf_counter()))
+    print("[time] phase 9: " + ", ".join(f"{name} {t - t0:.1f} s" for (_, t0), (name, t)
+                                          in zip(marks, marks[1:])))
+    for name in out:
+        for key, runs in counts.items():
+            out[name][key] = sum(r[name] for r in runs)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA card")
@@ -1203,8 +1604,11 @@ def main():
     check_salsanext_reference(dev)
     launches_salsanext = salsanext_main_path(dev, batch_r, raw_r, smi)
     launches_salsanext_train = salsanext_train(dev, smi)
-    print(f"[time] phases 1-7 {t_range - t_run:.1f} s, phase 8 {time.perf_counter() - t_range:.1f} s "
-          "(the build included in phase 2)")
+    t_nusc = time.perf_counter()
+    del batch_r
+    nusc_numbers = nuscenes_phase(dev, smi)
+    print(f"[time] phases 1-7 {t_range - t_run:.1f} s, phase 8 {t_nusc - t_range:.1f} s, phase 9 "
+          f"{time.perf_counter() - t_nusc:.1f} s (the build included in phase 2)")
     range_keys = ("range_max_abs_err", "range_ms", "range_device_ms", "range_plain_ms",
                   "range_bound_ms", "range_bound_by", "range_library_ms")
     for e in entries:
@@ -1216,11 +1620,16 @@ def main():
         e["launches_salsanext_train"] = launches_salsanext_train[e["name"]]
         e.update(epmf_numbers[e["name"]])
         e.update({k: range_numbers[e["name"]].get(k) for k in range_keys})
+        e.update(nusc_numbers[e["name"]])
     keys = ("name", "route", "source", "replaces", "launches", "launches_train", "launches_epmf",
             "launches_epmf_train", "launches_salsanext", "launches_salsanext_train",
             "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "epmf_max_abs_err", "epmf_ms", "epmf_device_ms", "epmf_plain_ms", "epmf_bound_ms",
-            "epmf_bound_by", "epmf_library_ms", *range_keys)
+            "epmf_bound_by", "epmf_library_ms", *range_keys, "launches_nusc",
+            "launches_nusc_train", "launches_nusc_epmf", "launches_nusc_epmf_train",
+            "launches_nusc_salsanext",
+            "nusc_max_abs_err", "nusc_ms", "nusc_device_ms", "nusc_plain_ms", "nusc_bound_ms",
+            "nusc_bound_by", "nusc_library_ms")
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

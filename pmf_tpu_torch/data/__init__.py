@@ -1,6 +1,8 @@
 from .jitter import color_jitter, color_jitter_fixed
 from .augment import AugmentConfig, PointAugParams, augment_pointcloud
-from .loader import kitti_sample_reader, range_sample_reader
+from .loader import (kitti_sample_reader, nuscenes_sample_reader, nuscenes_v2_sample_reader,
+                     range_sample_reader)
+from .nuscenes import Nuscenes, NuScenesLite, NuscenesV2
 from .perspective_pipeline import (
     AugParams, PVConfig, build_batch, build_eval_sample_with_uproj, normalize_feature,
     pad_image, pad_points, point_depth, pv_config,

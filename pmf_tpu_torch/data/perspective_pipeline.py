@@ -1,7 +1,9 @@
 """Perspective-view preprocessing (counterpart of
 `pmf_tpu/data/perspective_pipeline.py`).
 
-Project the LiDAR points into the camera image, 2D-augment the view (train:
+Project the LiDAR points into the camera image (SemanticKITTI: in front of
+the car and inside the image; nuScenes, `projection="cam"`: camera depth
+above min_depth and 1 px inside the image), 2D-augment the view (train:
 horizontal flip → rotation → random crop → pad, with ColorJitter on the RGB,
 after the 3D point augmentation when cfg.pcd_aug; eval: centre crop → pad),
 and z-buffer the points into the network input:
@@ -28,7 +30,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.projection import perspective_project
+from ..ops.projection import perspective_project, perspective_project_cam
 from ..ops.rasterize import rasterize_zbuffer
 from ..ops.scatter import fill_canvas, point_winner_flags, zbuffer_scatter_packed
 from ..ops.zbuffer import zbuffer_keys
@@ -57,6 +59,8 @@ class PVConfig:
     # contrast, saturation) strengths; None: no jitter
     pcd_aug: bool = False   # train: 3D point augmentation first
     augment: AugmentConfig = field(default_factory=AugmentConfig)
+    projection: str = "kitti"  # "kitti" (x > 0.5, inside the image) | "cam" (nuScenes)
+    min_depth: float = 1.0     # "cam": the least camera-frame depth kept
 
     @property
     def train_crop(self):
@@ -71,7 +75,9 @@ def pv_config(opts) -> PVConfig:
     """The PVConfig of an experiment's Options: its `sensor` group, and from
     its `augmentation` group the ColorJitter strengths of `img_jitter` (0.4
     each unless set; null turns it off) and the 3D point augmentation that
-    `sensor.pcd_aug: true` turns on."""
+    `sensor.pcd_aug: true` turns on. nuScenes (`dataset: nuScenes`) takes
+    the composed camera matrix's depth test (`projection="cam"`), as
+    pmf_tpu's trainer picks it."""
     sensor = opts.group("sensor")
     aug_group = opts.group("augmentation")
     jitter = aug_group.get("img_jitter", (0.4, 0.4, 0.4))
@@ -89,7 +95,8 @@ def pv_config(opts) -> PVConfig:
         img_stds=tuple(sensor.get("img_stds", PVConfig.img_stds)),
         img_jitter=tuple(jitter) if jitter else None,
         pcd_aug=bool(sensor.get("pcd_aug", False)),
-        augment=AugmentConfig.from_dict(aug_group))
+        augment=AugmentConfig.from_dict(aug_group),
+        projection="cam" if opts.dataset == "nuScenes" else "kitti")
 
 
 def pad_points(pcd: np.ndarray, sem_label: np.ndarray, n_points: int):
@@ -183,8 +190,12 @@ def view_geometry(points, labels, valid, proj_matrix, image, img_h, img_w,
     (rows, cols int32, keep bool, depth f32, vals [B, N, 6] =
     depth/x/y/z/i/label) and the padded RGB view [B, H, W, 3].
     """
-    rows_f, cols_f, keep = perspective_project(points[..., :3], proj_matrix,
-                                               img_h, img_w, valid)
+    if cfg.projection == "cam":
+        rows_f, cols_f, keep = perspective_project_cam(points[..., :3], proj_matrix, img_h, img_w,
+                                                       min_depth=cfg.min_depth, valid=valid)
+    else:
+        rows_f, cols_f, keep = perspective_project(points[..., :3], proj_matrix, img_h, img_w,
+                                                   valid)
     depth = point_depth(points)
     vals = torch.cat([depth[..., None], points[..., :4],
                       labels[..., None].float()], dim=-1)

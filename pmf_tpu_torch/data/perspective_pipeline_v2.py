@@ -1,8 +1,10 @@
 """The EPMF perspective view, V2 (counterpart of
-`pmf_tpu/data/perspective_pipeline_v2.py`), for SemanticKITTI.
+`pmf_tpu/data/perspective_pipeline_v2.py`).
 
-The points are cropped by yaw (±45°) with no image-bound test and projected
-into the camera; their truncated integer pixels give a tight box around
+The points are cropped by yaw (±45°, or each scan's own pair `fovs`) with no
+image-bound test and projected into the camera (with `cam_frame`, nuScenes'
+points already in the camera frame are cropped by their yaw about (z, x)
+and their depth z); their truncated integer pixels give a tight box around
 them, padded to at least the output size (below, and centred in width).
 Train: the 3D point augmentation when cfg.pcd_aug, a random image scale
 (1.0-1.2) before the box, then a horizontal flip, a rotation about the box's
@@ -25,7 +27,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops.projection import yaw_crop_project
+from ..ops.projection import cam_frame_crop_project, yaw_crop_project
 from ..ops.rasterize import rasterize_zbuffer
 from ..ops.zbuffer import zbuffer_keys
 from .augment import AugmentConfig, PointAugParams, draw_point_aug
@@ -56,6 +58,9 @@ class V2Config:
     img_jitter: tuple | None = None  # train ColorJitter strengths; None: off
     pcd_aug: bool = False     # train: 3D point augmentation first
     augment: AugmentConfig = field(default_factory=AugmentConfig)
+    cam_frame: bool = False   # points in the camera frame (NuscenesV2): yaw
+    # about (z, x), depth test on z
+    min_depth_cam: float = 0.1
 
 
 def v2_config(opts) -> V2Config:
@@ -117,15 +122,16 @@ def _bbox(v, keep):
 
 def v2_view_geometry(points, labels, valid, proj_matrix, image, img_h, img_w, cfg: V2Config,
                      train: bool = False, generator: torch.Generator | None = None,
-                     aug_override: V2AugParams | None = None):
+                     aug_override: V2AugParams | None = None, fovs=None):
     """Project, box and crop a batch of scans without the fill: the eval
     view, or the train view with its parameters drawn from `generator` or
     given by `aug_override`, in pmf_tpu's float32 arithmetic and order.
 
     points [B, N, 4], labels [B, N], valid [B, N], proj_matrix [B, 3, 4],
-    image [B, Hc, Wc, 3], img_h/img_w [B] int. Returns per point (rows, cols
-    int32, keep bool, depth f32, vals [B, N, 6] = depth/x/y/z/i/label) and
-    the RGB view [B, H, W, 3].
+    image [B, Hc, Wc, 3], img_h/img_w [B] int; fovs [B, 2] float32 each
+    scan's (fov_left, fov_right) radians, or None for the config's pair.
+    Returns per point (rows, cols int32, keep bool, depth f32, vals
+    [B, N, 6] = depth/x/y/z/i/label) and the RGB view [B, H, W, 3].
     """
     B, dev = points.shape[0], points.device
     out_h, out_w = (cfg.proj_ht, cfg.proj_wt) if train else (cfg.proj_h, cfg.proj_w)
@@ -144,8 +150,10 @@ def v2_view_geometry(points, labels, valid, proj_matrix, image, img_h, img_w, cf
         points = augmented_points(points, cfg, points_aug)
     b1 = lambda t: t[:, None]                                      # [B] → [B, 1]
 
-    rows_f, cols_f, keep = yaw_crop_project(points[..., :3], proj_matrix, cfg.fov_left,
-                                            cfg.fov_right, valid)
+    fov_l, fov_r = (cfg.fov_left, cfg.fov_right) if fovs is None else (fovs[:, :1], fovs[:, 1:])
+    crop = cam_frame_crop_project if cfg.cam_frame else yaw_crop_project
+    extra = (cfg.min_depth_cam,) if cfg.cam_frame else ()
+    rows_f, cols_f, keep = crop(points[..., :3], proj_matrix, fov_l, fov_r, *extra, valid=valid)
     # truncation to int, as the reference's astype(np.int32)
     x = saturating_int32(torch.trunc(rows_f * b1(scale)))
     y = saturating_int32(torch.trunc(cols_f * b1(scale)))
@@ -240,25 +248,29 @@ def _bilinear_sample(image, rows, cols, img_h, img_w):
 
 def build_v2_batch(points, labels, valid, proj_matrix, images, img_h, img_w, cfg: V2Config,
                    train: bool = False, generator: torch.Generator | None = None,
-                   aug_override: V2AugParams | None = None, return_points: bool = False):
+                   aug_override: V2AugParams | None = None, return_points: bool = False,
+                   fovs=None):
     """Batched V2 preprocessing: (feature [B, H, W, 8] normalized, mask
     [B, H, W] bool, label [B, H, W] int32) at (proj_ht, proj_wt) in train
-    mode and at (proj_h, proj_w) at eval, filled by K2. With return_points a
-    fourth element (pt_pix, pt_label, pt_won) [B, N], as `build_batch`
-    gives it, from K1."""
+    mode and at (proj_h, proj_w) at eval, filled by K2. `fovs` [B, 2] gives
+    each scan's yaw field of view (NuscenesV2's per-camera table), by
+    default the config's pair for every scan. With return_points a fourth
+    element (pt_pix, pt_label, pt_won) [B, N], as `build_batch` gives it,
+    from K1."""
     return _build_v2_batch(points, labels, valid, proj_matrix, images, img_h, img_w, cfg,
-                           train, generator, aug_override, return_points)
+                           train, generator, aug_override, return_points, fovs=fovs)
 
 
 def _build_v2_batch(points, labels, valid, proj_matrix, images, img_h, img_w, cfg: V2Config,
                     train: bool = False, generator=None, aug_override=None,
-                    return_points: bool = False, fill=rasterize_zbuffer, keys=zbuffer_keys):
+                    return_points: bool = False, fill=rasterize_zbuffer, keys=zbuffer_keys,
+                    fovs=None):
     """`build_v2_batch` with the rasterizer `fill` and the key scatter-min
     `keys` (the K2 and K1 wrappers, or their plain versions where the two
     are compared)."""
     H, W = (cfg.proj_ht, cfg.proj_wt) if train else (cfg.proj_h, cfg.proj_w)
     geometry = v2_view_geometry(points, labels, valid, proj_matrix, images, img_h, img_w, cfg,
-                                train, generator, aug_override)
+                                train, generator, aug_override, fovs)
     return fill_view(geometry, labels, H, W, cfg, return_points, fill, keys)
 
 

@@ -1,5 +1,6 @@
-"""Synthetic KITTI-like scans at the eval benchmark's sizes, made from a
-numpy generator.
+"""Synthetic KITTI-like scans at the eval benchmark's sizes, range-view
+scans, and nuScenes-like keyframes, made from a numpy generator in memory
+(no files, no PIL).
 
 The points, labels and image are drawn as `bench.py: make_inputs` draws
 them (x 2-70 m, y ±20 m, z -2-1 m; a random RGB canvas 16 columns wider
@@ -57,3 +58,73 @@ def make_range_inputs(rng: np.random.Generator, batch: int, n_points: int,
     valid = np.zeros((batch, n_points), bool)
     valid[:, :n_points if n_valid is None else n_valid] = True
     return pts, labels, valid
+
+
+NUSC_YAW_DEG = -60.0                              # the six cameras' yaws, clockwise
+NUSC_FX, NUSC_CX, NUSC_CY = 1266.0, 800.0, 450.0  # a nuScenes camera's intrinsic at 1600x900
+
+
+def nuscenes_camera(yaw_deg: float, h: int = 900, w: int = 1600):
+    """(R [3, 3], K [3, 3]) of a pinhole camera at the lidar's origin
+    looking along yaw `yaw_deg` in the lidar's x-y plane (z up): R's rows
+    the camera's right, down and forward; K nuScenes' intrinsic scaled to a
+    w-pixel-wide image, centred on it."""
+    t = np.deg2rad(yaw_deg)
+    R = np.array([[np.sin(t), -np.cos(t), 0.0], [0.0, 0.0, -1.0], [np.cos(t), np.sin(t), 0.0]])
+    fx = NUSC_FX * w / 1600
+    K = np.array([[fx, 0.0, w / 2], [0.0, fx, h / 2], [0.0, 0.0, 1.0]])
+    return R, K
+
+
+def make_nuscenes_inputs(rng: np.random.Generator, n_frames: int = 1, n_points: int = 65536,
+                         n_returns: int = 34720, h: int = 900, w: int = 1600):
+    """nuScenes-like keyframes, one item per (lidar, camera) pair, six
+    consecutive items a keyframe in nuScenes' camera order, as the numpy
+    arrays of `make_inputs` (points [B, N, 4], labels [B, N], valid [B, N],
+    proj [B, 3, 4], image [B, h, w, 3], img_h [B], img_w [B], B = 6 ·
+    n_frames); the six items of a keyframe share its scan. A scan is a
+    32-beam sweep all around (pitch -30° to 10°) of `n_returns` returns at
+    1-70 m, a tenth of them copies of others (ties in the z-buffer), padded
+    to `n_points`; 17-class labels. Item i's matrix is K · [R | 0] of
+    `nuscenes_camera(-60° · i)` (fx = fy = 1266, cx = 800, cy = 450 at
+    1600x900): 65° of yaw each, so each camera sees about an eighth of the
+    returns and the six together about 70 %."""
+    F, N = n_frames, n_returns
+    r = rng.uniform(1, 70, (F, N))
+    yaw = rng.uniform(-np.pi, np.pi, (F, N))
+    pitch = np.deg2rad(np.linspace(-30, 10, 32))[rng.integers(0, 32, (F, N))]
+    pts = np.zeros((F, n_points, 4), np.float32)
+    pts[:, :N] = np.stack([r * np.cos(pitch) * np.cos(yaw), r * np.cos(pitch) * np.sin(yaw),
+                           r * np.sin(pitch), rng.uniform(0, 1, (F, N))], -1)
+    pts[:, N // 2:N // 2 + N // 10] = pts[:, :N // 10]
+    labels = np.zeros((F, n_points), np.int32)
+    labels[:, :N] = rng.integers(0, 17, (F, N))
+    valid = np.zeros((F, n_points), bool)
+    valid[:, :N] = True
+    cams = []
+    for i in range(6):
+        R, K = nuscenes_camera(i * NUSC_YAW_DEG, h, w)
+        cams.append(np.concatenate([K @ R, np.zeros((3, 1))], axis=1))
+    rep = lambda a: np.repeat(a, 6, axis=0)
+    image = rng.random((6 * F, h, w, 3), dtype=np.float32)
+    return (rep(pts), rep(labels), rep(valid), np.tile(np.stack(cams), (F, 1, 1)).astype(np.float32),
+            image, np.full((6 * F,), h, np.int32), np.full((6 * F,), w, np.int32))
+
+
+def nuscenes_camera_frame(points: np.ndarray, h: int = 900, w: int = 1600):
+    """The items of `make_nuscenes_inputs` (points [B, N, 4], item b seen by
+    camera b mod 6) as NuscenesV2's reader gives them to the V2 view's
+    camera frame: (points with xyz in the item's camera frame, proj
+    [B, 3, 4] = [K | 0], fovs [B, 2] its camera's yaw field of view in
+    radians, FOV_ANGLE_V2's)."""
+    from .nuscenes import CAMERAS, FOV_ANGLE_V2
+
+    out = points.copy()
+    proj = np.zeros((len(points), 3, 4), np.float32)
+    fovs = np.zeros((len(points), 2), np.float32)
+    for b in range(len(points)):
+        R, K = nuscenes_camera((b % 6) * NUSC_YAW_DEG, h, w)
+        out[b, :, :3] = points[b, :, :3] @ R.T
+        proj[b, :, :3] = K
+        fovs[b] = np.deg2rad(FOV_ANGLE_V2[CAMERAS[b % 6]])
+    return out, proj, fovs

@@ -18,8 +18,29 @@ def leaky_relu(x: torch.Tensor) -> torch.Tensor:
     return torch.maximum(x, x * 0.01)
 
 
+LECUN_TRUNC = 0.87962566103423978  # the std of a unit normal truncated at ±2
+
+
 class Conv2d(nn.Conv2d):
-    """nn.Conv2d (torch integer padding) that runs in its input's dtype."""
+    """nn.Conv2d (torch integer padding) that runs in its input's dtype,
+    initialized as pmf_tpu's flax convs are: the kernel from `lecun_normal`
+    (a normal truncated at ±2 of its std, std = sqrt(1/fan_in) / 0.8796...,
+    fan_in = kh·kw·cin, so its variance is 1/fan_in), the bias zeros. The
+    draw comes from torch's global generator (`torch.manual_seed`)."""
+
+    @torch.no_grad()
+    def reset_parameters(self):
+        fan_in = self.weight[0].numel()
+        w = self.weight.view(-1).normal_()
+        # truncate at ±2 by drawing the values past it again (torch's
+        # trunc_normal_ redraws the whole tensor until none is left: 20x slower)
+        redo = (w.abs() > 2.0).nonzero().squeeze(1)
+        while redo.numel():
+            w[redo] = torch.randn(redo.numel(), dtype=w.dtype, device=w.device)
+            redo = redo[w[redo].abs() > 2.0]
+        w.mul_((1.0 / fan_in) ** 0.5 / LECUN_TRUNC)
+        if self.bias is not None:
+            self.bias.zero_()
 
     def forward(self, x):
         bias = None if self.bias is None else self.bias.to(x.dtype)

@@ -173,7 +173,9 @@ class PMFNet(nn.Module):
 def build_model(opts) -> nn.Module:
     """The PMFNet, EPMFNet or SalsaNext (5 input channels) of an
     experiment's Options (net_type, nclasses, base_channels, img_backbone,
-    compute_dtype), its weights at torch's initialization."""
+    compute_dtype), initialized as pmf_tpu's `model.init`: conv kernels
+    from flax's `lecun_normal`, conv biases zeros (`layers.Conv2d`), BN
+    scales 1 and biases 0, drawn from torch's global generator."""
     from .epmf import EPMFNet
 
     dtype = torch.bfloat16 if opts.compute_dtype == "bfloat16" else torch.float32

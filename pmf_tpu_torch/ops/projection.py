@@ -91,6 +91,24 @@ def yaw_crop_project(points, proj_matrix, fov_left: float = -math.pi / 4,
     return uvw[..., 1] / w, uvw[..., 0] / w, keep
 
 
+def cam_frame_crop_project(points, proj_matrix, fov_left, fov_right, min_depth: float = 0.1,
+                           valid=None):
+    """The EPMF view's crop of points already in the camera frame (nuScenes,
+    `V2Config.cam_frame`): keep points with depth z > min_depth and yaw
+    -atan2(z, x) in [fov_left - π/2, fov_right - π/2], and valid; project
+    them with no image-bound test. The bounds are floats or [..., 1]
+    tensors (one pair per scan). Returns (rows, cols) float32 and keep."""
+    keep = points[..., 2] > min_depth
+    if valid is not None:
+        keep = keep & valid
+    yaw = -torch.atan2(points[..., 2], points[..., 0])
+    half_pi = math.pi / 2.0
+    keep = keep & (yaw >= fov_left - half_pi) & (yaw <= fov_right - half_pi)
+    uvw = _project(points, proj_matrix)
+    w = torch.where(uvw[..., 2].abs() > 1e-9, uvw[..., 2], 1e-9)
+    return uvw[..., 1] / w, uvw[..., 0] / w, keep
+
+
 def spherical_project(points, fov_up_deg: float, fov_down_deg: float, proj_h: int,
                       proj_w: int, fov_left_deg: float = -180.0, fov_right_deg: float = 180.0,
                       valid=None):

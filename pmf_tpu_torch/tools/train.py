@@ -1,5 +1,5 @@
-"""Train PMFNet, EPMFNet or SalsaNext (`net_type`) on SemanticKITTI
-(counterpart of `pmf_tpu/tools/train.py`).
+"""Train PMFNet, EPMFNet or SalsaNext (`net_type`) on SemanticKITTI or
+nuScenes (`dataset`) (counterpart of `pmf_tpu/tools/train.py`).
 
 Usage:
   python -m pmf_tpu_torch.tools.train <config.yaml> [--val-only] [--debug]
@@ -11,7 +11,9 @@ checkpoint (every epoch) and the best_{Acc,IOU,Recall,last}_model.pth
 snapshots, which `tools/infer_kitti.py --weights` loads (SalsaNext's:
 `tools/infer_salsanext.py --weights`). `checkpoint: <any
 value>` in the config resumes from the run directory's checkpoint. --debug
-runs one iteration per epoch. The run is on the card unless --device cpu is
+runs one iteration per epoch (on nuScenes, from the v1.0-mini DB). A model
+without `pretrained_weights` starts from pmf_tpu's initialization, drawn
+after `torch.manual_seed(seed)`. The run is on the card unless --device cpu is
 given.
 """
 from __future__ import annotations

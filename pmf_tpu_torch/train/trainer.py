@@ -1,9 +1,11 @@
-"""PMFNet, EPMFNet and SalsaNext training on SemanticKITTI (counterpart of
-the PMF, EPMF and SalsaNext branches of `pmf_tpu/train/trainer.py`).
+"""PMFNet, EPMFNet and SalsaNext training on SemanticKITTI and nuScenes
+(counterpart of the PMF, EPMF and SalsaNext branches of
+`pmf_tpu/train/trainer.py`).
 
 The Trainer batches samples from readers (`reader(i)` → the numpy sample
-dict of `data.kitti_sample_reader`, or for SalsaNext of
-`data.range_sample_reader`), builds the train view on the device (PMF:
+dict of `data.kitti_sample_reader` or `data.nuscenes_sample_reader`, or for
+SalsaNext of `data.range_sample_reader`), builds the train view on the
+device (PMF:
 `build_batch`, EPMF: the V2 view `build_v2_batch`, K2 for the canvas and,
 with the point-domain Lovász, K1 for the points' winner flags; SalsaNext:
 the range view `build_range_batch`, K1 for its z-buffer), and runs the train
@@ -25,8 +27,9 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..data import (SemanticKitti, build_batch, build_range_batch, build_v2_batch,
-                    kitti_sample_reader, range_config, range_sample_reader, view_config)
+from ..data import (Nuscenes, SemanticKitti, build_batch, build_range_batch, build_v2_batch,
+                    kitti_sample_reader, nuscenes_sample_reader, range_config,
+                    range_sample_reader, view_config)
 from ..losses import init_multi_task_params
 from ..metrics import IOUEval
 from ..utils import AverageMeter, RemainTime
@@ -66,6 +69,13 @@ def config_focal_alpha(cls_freq) -> np.ndarray:
     alpha = alpha / alpha.max()
     alpha[0] = 0.0
     return alpha.astype(np.float32)
+
+
+def nuscenes_focal_alpha(nclasses: int) -> np.ndarray:
+    """nuScenes' alpha: 1 for every class but class 0 (ignored)."""
+    alpha = np.ones((nclasses,), np.float32)
+    alpha[0] = 0.0
+    return alpha
 
 
 def batches(reader: Callable[[int], dict], n: int, batch_size: int, shuffle: bool,
@@ -135,23 +145,37 @@ class Trainer:
 
     @classmethod
     def from_files(cls, opts, model, device: torch.device) -> "Trainer":
-        """SemanticKITTI under opts.data_root: sequences 00-07, 09, 10 to
-        train on, 08 to validate on (SalsaNext reads no images); alpha from
-        the config's `cls_freq`, or from the class-map YAML's content
-        frequencies."""
-        if opts.dataset != "SemanticKitti":
-            raise NotImplementedError(f"dataset {opts.dataset} is not ported yet")
+        """The dataset under opts.data_root. SemanticKITTI: sequences 00-07,
+        09, 10 to train on, 08 to validate on (SalsaNext reads no images);
+        alpha from the config's `cls_freq`, or from the class-map YAML's
+        content frequencies. nuScenes: the train and val scenes of the DB
+        `nusc_version` (v1.0-mini under --debug, `is_debug`), split by
+        `nusc_splits_file` or the official split, one item per (lidar,
+        camera) pair for every net (SalsaNext reads only the scans); alpha
+        1 for every class but class 0."""
         is_range = opts.net_type == "SalsaNext"
-        trainset = SemanticKitti(opts.data_root, TRAIN_SEQUENCES, has_image=not is_range)
-        valset = SemanticKitti(opts.data_root, VAL_SEQUENCES, has_image=not is_range)
-        if opts.config.get("cls_freq"):
-            alpha = config_focal_alpha(opts.config["cls_freq"])
+        if opts.dataset == "SemanticKitti":
+            trainset = SemanticKitti(opts.data_root, TRAIN_SEQUENCES, has_image=not is_range)
+            valset = SemanticKitti(opts.data_root, VAL_SEQUENCES, has_image=not is_range)
+            if opts.config.get("cls_freq"):
+                alpha = config_focal_alpha(opts.config["cls_freq"])
+            else:
+                alpha = kitti_focal_alpha(trainset.cls_freq, trainset.learning_ignore)
+            view_reader = kitti_sample_reader
+        elif opts.dataset == "nuScenes":
+            version = "v1.0-mini" if opts.is_debug else \
+                opts.config.get("nusc_version", "v1.0-trainval")
+            trainset, valset = (Nuscenes(opts.data_root, version=version, split=split,
+                                         splits_file=opts.config.get("nusc_splits_file"))
+                                for split in ("train", "val"))
+            alpha = nuscenes_focal_alpha(opts.nclasses)
+            view_reader = nuscenes_sample_reader
         else:
-            alpha = kitti_focal_alpha(trainset.cls_freq, trainset.learning_ignore)
+            raise NotImplementedError(f"dataset {opts.dataset} is not ported yet")
         if is_range:
             reader, cfg = range_sample_reader, range_config(opts)
         else:
-            reader, cfg = kitti_sample_reader, view_config(opts)
+            reader, cfg = view_reader, view_config(opts)
         return cls(opts, model, reader(trainset, cfg), len(trainset), reader(valset, cfg),
                    len(valset), device, alpha, trainset.mapped_cls_name)
 

@@ -364,3 +364,64 @@ def test_range_batch_kernel_fill_matches_plain(cuda_device):
         want = _build_range_batch(*batch, cfg, train, gen(), keys=tzbuf.zbuffer_keys_plain)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
         assert got[0].shape == (B, 64, 2048, 5) and got[2].sum() > B * 50000
+
+
+@pytest.mark.cuda
+def test_nuscenes_kernels_match_plain(cuda_device):
+    """The nuScenes shapes (pmf_nuscenes.yaml): K1 on one eval item, 65536
+    points into 896x1600 (16 index bits, depth clipped at 512 m), and K2 at
+    the PMF train batch, 3 x 65536 points into 640x960 (64-bit keys), with
+    forced ties, equal to their plain versions."""
+    N = 65536
+    rows, cols, depth, keep, vals = (torch.from_numpy(a).to(cuda_device)
+                                     for a in points_with_ties(24, 1, N, 896, 1600))
+    depth[:, 100:200] = 600.0                                    # past the clip
+    pix, key, nbits = packed_keys(rows, cols, depth, keep, 896, 1600, 1 / 64)
+    assert nbits == 16
+    before = tzbuf.zbuffer_keys.launches
+    got = tzbuf.zbuffer_keys(pix, key, 896, 1600)
+    torch.cuda.synchronize()
+    assert tzbuf.zbuffer_keys.launches == before + 1
+    assert torch.equal(got, tzbuf.zbuffer_keys_plain(pix, key, 896, 1600))
+
+    args = [torch.from_numpy(a).to(cuda_device) for a in points_with_ties(25, 3, N, 640, 960)]
+    before = trast.rasterize_zbuffer.launches
+    canvas, mask = trast.rasterize_zbuffer(*args, 640, 960)
+    torch.cuda.synchronize()
+    assert trast.rasterize_zbuffer.launches == before + 1
+    want_c, want_m = trast.rasterize_zbuffer_plain(*args, 640, 960)
+    assert torch.equal(mask, want_m) and torch.equal(canvas, want_c)
+
+
+@pytest.mark.cuda
+def test_nuscenes_cam_view_kernels_match_plain(cuda_device):
+    """PMF's "cam" view of synthetic nuScenes keyframes on the card: the
+    per-item eval view through K1 and the train view with the points'
+    winner flags through K2 and K1 equal the same with the plain versions;
+    the winners of the flags are K2's mask (depths stay within K1's 512 m
+    clip)."""
+    from pmf_tpu_torch.data import AugParams, PVConfig, build_batch, build_eval_sample_with_uproj
+    from pmf_tpu_torch.data.perspective_pipeline import _build_batch
+    from pmf_tpu_torch.data.synthetic import make_nuscenes_inputs
+
+    raw = make_nuscenes_inputs(np.random.default_rng(26), 1)
+    batch = [torch.from_numpy(a).to(cuda_device) for a in raw]
+    cfg = PVConfig(canvas_h=900, canvas_w=1600, proj_h=896, proj_w=1600, proj_ht=640,
+                   proj_wt=960, h_pad=0, w_pad=0, n_points=65536, projection="cam")
+    one = [t[0] for t in batch]
+    got = build_eval_sample_with_uproj(*one[:5], 900, 1600, cfg)
+    assert got[1].sum() > 3000
+    aug = AugParams(*(torch.tensor(v, device=cuda_device)[:3].expand(3) for v in
+                      ([True], [0.1], [100], [300])))
+    f, m, lab, (pix, plab, won) = build_batch(*(t[:3] for t in batch), cfg, True,
+                                              aug_override=aug, return_points=True)
+    want = _build_batch(*(t[:3] for t in batch), cfg, True, None, aug, True,
+                        fill=trast.rasterize_zbuffer_plain, keys=tzbuf.zbuffer_keys_plain)
+    assert all(torch.equal(a, b) for a, b in zip((f, m, lab, pix, plab, won),
+                                                 (*want[:3], *want[3])))
+    hw = 640 * 960
+    win_pix = torch.where(won, pix.long(), hw)
+    hit = torch.zeros((3, hw + 1), dtype=torch.bool, device=cuda_device).scatter_(1, win_pix, True)
+    assert torch.equal(hit[:, :hw].view_as(m), m) and m.sum() > 3000
+    lab_at = torch.cat([lab.view(3, -1), torch.zeros_like(lab.view(3, -1)[:, :1])], 1)
+    assert torch.equal(lab_at.gather(1, win_pix)[won], plab[won])
