@@ -84,7 +84,26 @@ Phases, each of which ends the run with a non-zero exit on failure:
      one keyframe through NuscenesInference's EPMF branch at 640x1280
      (`launches_nusc_epmf`), one EPMF train step at batch 6, 320x1088, with
      its peak memory, and one scan through SalsaNextInference's nuScenes
-     branch at 32x2048 (`launches_nusc_salsanext`).
+     branch at 32x2048 (`launches_nusc_salsanext`);
+ 10. A2D2 and SensatUrban (configs/experiments/epmf_a2d2.yaml and
+     pmf_sensat.yaml at full width, on data/synthetic.py's make_a2d2_inputs,
+     scans of 27000 returns with their stored pixels in 1208x1920 images
+     padded to 32768 points, and make_sensat_frame, a tile of 2e6 points,
+     1200x1200 cells): (a) K2 at the A2D2 train view (6 scans, 320x960,
+     32-bit keys, the trainer's draws) and validation view (10 scans,
+     480x1280), K1 on one scan at A2D2Inference's window (480x1280, 15 index
+     bits), each with forced ties held to its plain version exactly and
+     timed as in phase 3 (`a2d2_*`, `a2d2_val_*` keys); (b) a small EPMFNet
+     on the pixel-index V2 view and a small PMFNet on the BEV batch (eval,
+     and a train crop of quarter turns) card vs CPU as phase 4, one float32
+     EPMF A2D2 train step and one SensatUrban train step (Dice, AMSGrad) as
+     6(b); (c) EPMF-ResNet34 A2D2 (bf16): A2D2Inference.run over 4 scans (K1
+     4 launches), the batched validation view at batch 10 (K2, scans/s)
+     (`launches_a2d2`), the Trainer at batch 6, 320x960, multi-task loss
+     (K2 only; `launches_a2d2_train`); (d) PMF-ResNet34 SensatUrban
+     (float32, TF32 off): SensatInference.run at scales 320/448/576 with
+     the 7 test-time views (34 windows), then with KNN, and the Trainer at
+     batch 4, 320x320 with Dice and AMSGrad, with the redraws it took.
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Without a CUDA card the script exits 1 and
@@ -112,6 +131,14 @@ NCH, NCW, NH, NW, NN = 900, 1600, 896, 1600, 65536
 NTH, NTW, NBT, NBV = 640, 960, 3, 4
 EH, EW, ETH, ETW, EBT = 640, 1280, 320, 1088, 6
 SH, SW = 32, 2048
+# A2D2 (configs/experiments/epmf_a2d2.yaml): the canvas, the eval and train views, the point
+# buffer, the train and validation batches
+AH, AW, AEH, AEW, ATH, ATW, AN, ABT, ABV = 1208, 1920, 480, 1280, 320, 960, 32768, 6, 10
+PIX_KEYS = ("points", "labels", "valid", "rows", "cols", "image", "img_h", "img_w")
+# SensatUrban (configs/experiments/pmf_sensat.yaml): the crop and the batch; the synthetic tile
+# is about SF x SF cells (120 x 120 m at 0.1 m)
+SS, SBT, SF = 320, 4, 1200
+SCALES = (320, 448, 576)    # infer_sensat's default window sizes
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 
@@ -630,12 +657,12 @@ def check_train_view(dev, batch):
           f"pt_won); {int(m.sum())} occupied pixels, {labelled} labelled = labelled winners")
 
 
-def train_step_run(model, dev, batch, mt_sigma=None, nclasses=20):
+def train_step_run(model, dev, batch, mt_sigma=None, nclasses=20, sensat=False):
     """One train step of `model` on `batch` moved to `dev` (PMFNet and
     EPMFNet: make_pmf_train_step, hybrid optimizer, with `mt_sigma` the
-    multi-task loss, σ in the AdamW group; SalsaNext: its step and adamw),
-    `nclasses` classes, class 0 ignored: (aux, gradients by name, BN running
-    statistics)."""
+    multi-task loss, σ in the AdamW group, with `sensat` SensatUrban's Dice
+    terms and AMSGrad; SalsaNext: its step and adamw), `nclasses` classes,
+    class 0 ignored: (aux, gradients by name, BN running statistics)."""
     from pmf_tpu_torch.models import SalsaNext
     from pmf_tpu_torch.train import (HybridOptimizer, LossConfig, adamw, make_pmf_train_step,
                                      make_salsanext_train_step)
@@ -644,11 +671,11 @@ def train_step_run(model, dev, batch, mt_sigma=None, nclasses=20):
                               None if t is None else tuple(x.to(dev) for x in t) for t in batch)
     extra = [] if mt_sigma is None else [torch.nn.Parameter(mt_sigma.to(dev, copy=True))]
     cfg = LossConfig(nclasses=nclasses, alpha=tuple([0.0] + [1.0] * (nclasses - 1)),
-                     use_mtloss=bool(extra))
+                     use_mtloss=bool(extra), use_dice=sensat)
     if isinstance(model, SalsaNext):
         aux = make_salsanext_train_step(model, adamw(model, lambda step: 1e-3), cfg)(feature, label)
     else:
-        opt = HybridOptimizer(model, lambda step: 1e-3, 0.9, 1e-5, extra=extra)
+        opt = HybridOptimizer(model, lambda step: 1e-3, 0.9, 1e-5, extra=extra, amsgrad=sensat)
         aux = make_pmf_train_step(model, opt, cfg, *extra)(feature, label, None, points)
     grads = {k: p.grad.detach().double().cpu() for k, p in model.named_parameters()}
     grads.update({"mt_sigma": p.grad.detach().double().cpu() for p in extra})
@@ -691,7 +718,7 @@ def check_train_reference(dev):
 
 
 def hold_train_step(dev, tag, model, batch, mt_sigma=None, stats_in_float64=False,
-                    nclasses=20):
+                    nclasses=20, sensat=False):
     """One train step of `model` on `batch` on the card against the CPU,
     held as `check_train_reference` says; with `stats_in_float64` the BN
     statistics are held in the float64 step too (the float32 ones printed)."""
@@ -699,7 +726,7 @@ def hold_train_step(dev, tag, model, batch, mt_sigma=None, stats_in_float64=Fals
     model64.dtype = torch.float64
     sigma64 = None if mt_sigma is None else mt_sigma.double()
     cpu = torch.device("cpu")
-    run = lambda m, d, sigma: train_step_run(m, d, batch, sigma, nclasses)
+    run = lambda m, d, sigma: train_step_run(m, d, batch, sigma, nclasses, sensat)
     aux_c, g_c, s_c = run(copy.deepcopy(model), cpu, mt_sigma)
     aux_d, g_d, s_d = run(copy.deepcopy(model).to(dev), dev, mt_sigma)
     _, g64_c, s64_c = run(copy.deepcopy(model64), cpu, sigma64)
@@ -763,10 +790,11 @@ def profile_step(step, smi, top: int = 12, name: str = "train step"):
         print(f"[trace]   conv   {t:9.3f} ms  x{n:<5d} {k} input, weight {shapes[:2]}")
 
 
-def scan_reader(raw, n_pool: int):
-    """reader(i) → the numpy sample dict of synthetic scan i mod n_pool (the
-    perspective views' keys, or the range view's for 3 arrays)."""
-    keys = ("points", "labels", "valid", "proj_matrix", "image", "img_h", "img_w")
+def scan_reader(raw, n_pool: int, keys=None):
+    """reader(i) → the numpy sample dict of synthetic scan i mod n_pool under
+    `keys` (by default the perspective views' keys, or the range view's for
+    3 arrays)."""
+    keys = keys or ("points", "labels", "valid", "proj_matrix", "image", "img_h", "img_w")
     return lambda i: {k: a[i % n_pool] for k, a in zip(keys, raw)}
 
 
@@ -786,9 +814,10 @@ def full_width_train(dev, smi):
 
 
 def train_path(dev, smi, tag, net, opts, raw, size_train, size_val, kernels_of_path,
-               model=None):
-    """The Trainer of `opts` on the in-memory scans `raw` (2 train batches
-    an epoch, 1 validation batch): 2 warm-up and 8 timed steps, one
+               model=None, keys=None):
+    """The Trainer of `opts` on the in-memory samples `raw` (read under
+    `keys`, as `scan_reader` reads them; 2 train batches an epoch, 1
+    validation batch): 2 warm-up and 8 timed steps, one
     validation pass, the checks of (6c) (and σ trained, with the
     multi-task loss), a step split by CUDA events and a profiled step.
     It trains `model` (on `dev`), or the net of `opts` with random weights
@@ -801,7 +830,7 @@ def train_path(dev, smi, tag, net, opts, raw, size_train, size_val, kernels_of_p
 
     bt, bv = opts.batch_size
     (th, tw), (vh, vw) = size_train, size_val
-    reader = scan_reader(raw, 2 * bt)
+    reader = scan_reader(raw, 2 * bt, keys)
     if model is None:
         torch.manual_seed(0)
         model = random_weights(build_model(opts), seed=0).to(dev)
@@ -847,7 +876,7 @@ def train_path(dev, smi, tag, net, opts, raw, size_train, size_val, kernels_of_p
             val_conf[:streams] != (bv * vh * vw,) * streams:
         fail(f"{tag} confusion matrices sum to {train_conf} (train) and {val_conf} "
              f"(validation), not the {2 * bt * th * tw} and {bv * vh * vw} labelled pixels")
-    if min(launches[k] for k in kernels_of_path) == 0:
+    if any(launches[k] == 0 for k in kernels_of_path):
         fail(f"{tag} a kernel of the train path was not launched: {launches}")
 
     # one more step, split by CUDA events (the trainer's pieces, in its order)
@@ -878,8 +907,10 @@ def train_path(dev, smi, tag, net, opts, raw, size_train, size_val, kernels_of_p
     names = ("view", "forward", "loss", "backward", "optimizer")
     profile_step(lambda: trainer._step(next(batches(reader, 2 * bt, bt, True)), True), smi)
     lovasz = "point" if trainer.point_lovasz else "image-domain"
+    inputs = f"{raw[0].shape[1]} points" if raw[0].ndim == 3 else \
+        f"{raw[0].shape[-2]}x{raw[0].shape[-1]} frames"
     print(f"{tag} Trainer, {net} {opts.compute_dtype}, batch {bt}, {th}x{tw} crop, "
-          f"{raw[0].shape[1]} points, {lovasz} Lovász"
+          f"{inputs}, {lovasz} Lovász"
           f"{', multi-task loss' if sigma0 is not None else ''}: "
           f"{ms_step:.2f} ms/step = {bt / ms_step * 1e3:.2f} train scans/s "
           f"(8 steps after 2 warm-up, host-inclusive) on {smi}")
@@ -1547,6 +1578,376 @@ def nuscenes_phase(dev, smi):
     return out
 
 
+def a2d2_opts(**kw):
+    """Options of configs/experiments/epmf_a2d2.yaml as shipped, the groups
+    the port reads written out (this script reads no YAML): EPMFNet, 39
+    classes, base 32, bf16, multi-task loss, image-domain Lovász."""
+    from pmf_tpu_torch.config import Options
+
+    pv = {"canvas_h": AH, "canvas_w": AW, "proj_h": AEH, "proj_w": AEW, "proj_ht": ATH,
+          "proj_wt": ATW, "n_points": AN, "img_jitter": [0.4, 0.4, 0.4],
+          "pcd_mean": [17.95, 16.17, -0.17, 1.23, 18.49],
+          "pcd_stds": [24.00, 23.55, 8.06, 3.96, 21.45]}
+    config = {"PVconfig": pv, "augmentation": {"img_jitter": [0.4, 0.4, 0.4]},
+              "use_mtloss": True, "point_lovasz": False}
+    return Options(config=config, dataset="a2d2", net_type="EPMFNet", nclasses=39,
+                   base_channels=32, compute_dtype="bfloat16", batch_size=(ABT, ABV), **kw)
+
+
+def sensat_opts(**kw):
+    """Options of configs/experiments/pmf_sensat.yaml as shipped: PMFNet, 14
+    classes, base 32, float32, 320 x 320 crops and tiles, batch 4."""
+    from pmf_tpu_torch.config import Options
+
+    sensor = {"proj_h": SS, "proj_w": SS, "proj_ht": SS, "proj_wt": SS, "n_samples_split": 200}
+    knn = {"KNN": {"params": {"knn": 5, "search": 5, "sigma": 1.0, "cutoff": 1.0}}}
+    return Options(config={"sensor": sensor, "augmentation": {}, "post": knn},
+                   dataset="SensatUrban", net_type="PMFNet", nclasses=14, base_channels=32,
+                   batch_size=(SBT, SBT), **kw)
+
+
+def a2d2_scans(raw):
+    """reader(i) → scan i of `raw` (the arrays of `make_a2d2_inputs`) as
+    `infer_a2d2.a2d2_scan_reader` gives it: its valid points, labels and
+    pixels, and its image."""
+    def read(i):
+        v = raw[2][i]
+        return {"points": raw[0][i][v], "labels": raw[1][i][v], "rows": raw[3][i][v],
+                "cols": raw[4][i][v], "image": raw[5][i]}
+
+    return read
+
+
+def reset_launches():
+    from pmf_tpu_torch.ops import rasterize, zbuffer
+
+    zbuffer.zbuffer_keys.launches = 0
+    rasterize.rasterize_zbuffer.launches = 0
+
+
+def read_launches() -> dict:
+    from pmf_tpu_torch.ops import rasterize, zbuffer
+
+    torch.cuda.synchronize()
+    return {"zbuffer_keys": zbuffer.zbuffer_keys.launches,
+            "rasterize_zbuffer": rasterize.rasterize_zbuffer.launches}
+
+
+def check_a2d2_kernels(dev, raw, smi):
+    """10(a): K2 at the A2D2 train view's own inputs (6 scans of 32768
+    points into 320x960, the trainer's draws: 32-bit keys) and at the
+    validation view's (10 scans into 480x1280), and K1 on one scan at
+    A2D2Inference's own window (32768 points into 480x1280: 15 index bits),
+    each with forced ties, held to its plain version exactly and timed as in
+    phase 3 (`a2d2_` keys; `a2d2_val_` for K2's validation batch)."""
+    from pmf_tpu_torch.data import v2_config
+    from pmf_tpu_torch.data.perspective_pipeline_v2 import v2_view_geometry
+    from pmf_tpu_torch.ops.scatter import packed_keys
+    from pmf_tpu_torch.tools.infer_a2d2 import A2D2Inference
+
+    opts = a2d2_opts()
+    cfg = v2_config(opts)
+    out = {"rasterize_zbuffer": {}, "zbuffer_keys": {}}
+    for prefix, b, train, (h, w), seed in (("a2d2_", ABT, True, (ATH, ATW), 6),
+                                           ("a2d2_val_", ABV, False, (AEH, AEW), 7)):
+        batch = on([a[:b] for a in raw], dev)
+        rows, cols, keep, depth, vals, _ = v2_view_geometry(
+            *batch[:3], None, *batch[5:], cfg, train,
+            torch.Generator(device=dev).manual_seed(opts.seed), pix=(batch[3], batch[4]))
+        rows, cols, depth, keep = force_ties(rows, cols, depth, keep, seed=seed, h=h)
+        vals = vals.contiguous()
+        err = hold_rasterize(f"A2D2 {'train' if train else 'validation'} view, 32-bit keys, "
+                             "forced ties", rows, cols, depth, keep, vals, h, w)
+        numbers = {"max_abs_err": err, **rasterize_numbers(rows, cols, depth, keep, vals, h, w)}
+        out["rasterize_zbuffer"].update({prefix + k: v for k, v in numbers.items()})
+        print_numbers("rasterize_zbuffer", out["rasterize_zbuffer"], smi, prefix)
+
+    inference = A2D2Inference(opts, None, a2d2_scans(raw), 1, dev)
+    rows, cols, keep, depth, _, _ = inference.window(a2d2_scans(raw)(0))
+    rows, cols, depth, keep = force_ties(rows[None], cols[None], depth[None], keep[None], seed=8,
+                                         h=AEH)
+    pix, key, nbits = packed_keys(rows, cols, depth, keep, AEH, AEW, 1 / 64)
+    p1, k1 = pix.contiguous(), key.contiguous()
+    err = hold_keys(f"A2D2Inference window, {nbits} index bits, forced ties", p1, k1, AEH, AEW)
+    numbers = {"max_abs_err": err, **keys_numbers(p1, k1, AEH, AEW, int(keep.sum()))[0]}
+    out["zbuffer_keys"] = {"a2d2_" + k: v for k, v in numbers.items()}
+    print_numbers("zbuffer_keys", out["zbuffer_keys"], smi, "a2d2_")
+    out["zbuffer_keys"].update({"a2d2_val_" + k: None for k in numbers})  # K2's batch only
+    return out
+
+
+def quarter_turns(aug):
+    """SensatAugParams with each rotation replaced by a quarter turn (-1 to
+    2 of them): the crop's cells then map near integer source coordinates,
+    which a last-place difference between two devices' cos and sin cannot
+    move across a rounding edge."""
+    turns = torch.arange(aug.theta.numel()).reshape(aug.theta.shape) % 4 - 1
+    return aug._replace(theta=turns.float() * (np.pi / 2))
+
+
+def sensat_view(d, fm, lm, cfg, train, aug=None):
+    """build_sensat_batch on device `d` as (feature, occupancy, label)."""
+    from pmf_tpu_torch.data import build_sensat_batch
+
+    if aug is not None:
+        aug = type(aug)(*(t.to(d) for t in aug))
+    f, lab = build_sensat_batch(*on((fm, lm), d), cfg, train, aug_override=aug)
+    return f, f[..., 4] > 0, lab
+
+
+def check_a2d2_sensat_reference(dev):
+    """10(b): a small EPMFNet (39 classes, base 8) on the pixel-index V2 view
+    and a small PMFNet (14 classes, base 8) on build_sensat_batch (eval, and
+    train with fixed draws whose rotations are quarter turns), in float32 on
+    the card against the CPU as phase 4 holds them; then one float32 EPMF
+    A2D2 train step (multi-task loss, a fixed augmentation) and one float32
+    SensatUrban train step (Dice, AMSGrad) on 32x32 crops, as 6(b), each
+    with its BN statistics held in the float64 step, as 7(b): the deepest
+    BN sees 8 pixels a batch (EPMF at 1/32 of 64x128; ResNet34's layer4 at
+    1x1 for each of 2 crops of 32x32), and its float32 variance
+    E[x²] − E[x]² moves in the fifth digit with the order of the sums."""
+    from pmf_tpu_torch.data import SensatConfig, V2AugParams, V2Config, build_v2_batch_pix
+    from pmf_tpu_torch.data.sensat_urban import draw_sensat_aug
+    from pmf_tpu_torch.data.synthetic import make_a2d2_inputs, make_sensat_frame
+    from pmf_tpu_torch.losses import init_multi_task_params
+    from pmf_tpu_torch.models import EPMFNet, PMFNet, random_weights
+
+    raw = make_a2d2_inputs(np.random.default_rng(31), 2, 4096, 3000, 96, 192)
+    cfg = V2Config(canvas_h=96, canvas_w=192, proj_h=64, proj_w=128, proj_ht=64, proj_wt=128,
+                   n_points=4096)
+    torch.manual_seed(31)
+    model = random_weights(EPMFNet(nclasses=39, base_channels=8), seed=31)
+    hold_card_to_cpu(dev, "[a2d2] (b) EPMF pixel-index view",
+                     lambda d: build_v2_batch_pix(*on(raw, d), cfg), model)
+    full = lambda v, dt: torch.full((2,), v, dtype=dt)
+    aug = V2AugParams(full(1.1, torch.float32), full(True, torch.bool),
+                      full(np.deg2rad(7.0), torch.float32), full(4, torch.int64),
+                      full(20, torch.int64), fixed_aug(2, "cpu").jitter)
+    f, _, lab = build_v2_batch_pix(*map(torch.from_numpy, raw), cfg, train=True,
+                                   aug_override=aug)
+    model = random_weights(EPMFNet(nclasses=39, base_channels=8, dropout_rate=0.0), seed=32)
+    sigma = init_multi_task_params(6) * torch.linspace(0.5, 2.0, 6)
+    hold_train_step(dev, "[a2d2] (b) f32 EPMF A2D2 train step (multi-task loss) card vs CPU at "
+                    "2x64x128, base 8", model, (f, lab, None), sigma, stats_in_float64=True,
+                    nclasses=39)
+
+    frame, _ = make_sensat_frame(np.random.default_rng(33), 40000, 12.0)
+    fm = np.stack([frame["feature_map"][:, :64, :64], frame["feature_map"][:, -64:, -64:]])
+    lm = np.stack([frame["label_map"][:64, :64], frame["label_map"][-64:, -64:]])
+    crop = SensatConfig(img_h=32, img_w=32)
+    aug = quarter_turns(draw_sensat_aug(torch.Generator().manual_seed(33), 2, 64, 64, crop))
+    model = random_weights(PMFNet(nclasses=14, base_channels=8), seed=2)
+    hold_card_to_cpu(dev, "[sensat] (b) PMF BEV eval view",
+                     lambda d: sensat_view(d, fm, lm, SensatConfig(img_h=64, img_w=64), False),
+                     model)
+    hold_card_to_cpu(dev, "[sensat] (b) PMF BEV train crop (quarter turns, flips, jitter)",
+                     lambda d: sensat_view(d, fm, lm, crop, True, aug), model)
+    f, _, lab = sensat_view("cpu", fm, lm, crop, True, aug)
+    model = random_weights(PMFNet(nclasses=14, base_channels=8, dropout_rate=0.0), seed=34)
+    hold_train_step(dev, "[sensat] (b) f32 SensatUrban train step (Dice, AMSGrad) card vs CPU "
+                    "at 2x32x32, base 8", model, (f, lab, None), stats_in_float64=True,
+                    nclasses=14, sensat=True)
+
+
+def a2d2_batched_eval(dev, model, raw, smi):
+    """10(c), second part: the batched A2D2 validation view
+    (build_v2_batch_pix → K2 → `model`, EPMFNet → argmax) at batch 10,
+    480x1280, against the same with the plain fill; scans/s. Returns the
+    launch counts."""
+    from pmf_tpu_torch.data import build_v2_batch_pix, v2_config
+    from pmf_tpu_torch.data.perspective_pipeline_v2 import _build_v2_batch
+    from pmf_tpu_torch.ops import argmax_last, rasterize
+
+    cfg = v2_config(a2d2_opts())
+    batch = on([a[:ABV] for a in raw], dev)
+
+    def batched():
+        f, m, lab = build_v2_batch_pix(*batch, cfg)
+        lidar, _ = model(f[..., :5], f[..., 5:8])
+        return f, m, lab, lidar, argmax_last(lidar)
+
+    reset_launches()
+    with torch.inference_mode():
+        f, m, lab, lidar, pred = batched()
+        launches = read_launches()
+        if launches["rasterize_zbuffer"] == 0:
+            fail(f"[a2d2] (c) K2 was not launched on the batched view: {launches}")
+        if lidar.shape != (ABV, AEH, AEW, 39) or not torch.isfinite(lidar).all() \
+                or pred.unique().numel() < 2:
+            fail(f"[a2d2] (c) batched probabilities {tuple(lidar.shape)}, finite "
+                 f"{bool(torch.isfinite(lidar).all())}, {pred.unique().numel()} classes")
+        plain = _build_v2_batch(*batch[:3], None, *batch[5:], cfg,
+                                fill=rasterize.rasterize_zbuffer_plain, pix=(batch[3], batch[4]))
+        if not all(torch.equal(x, y) for x, y in zip((f, m, lab), plain)):
+            fail("[a2d2] (c) the batched view gives other features, mask or labels with the "
+                 "plain fill")
+        for _ in range(2):
+            batched()
+        times = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            batched()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        profile_step(batched, smi, name="eval batch (A2D2 build_v2_batch_pix+EPMFNet+argmax)")
+    med = statistics.median(times)
+    print(f"[a2d2] (c) batched eval build_v2_batch_pix+EPMFNet+argmax, batch {ABV}, {AEH}x{AEW}, "
+          f"{AN} points, bf16: kernel fill == plain fill; {int(m.sum())} occupied pixels; "
+          f"{ABV / med:.2f} scans/s (median of {len(times)} batches: {med * 1e3:.2f} ms, min "
+          f"{min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}) on {smi}")
+    return launches
+
+
+def a2d2_paths(dev, raw, smi):
+    """10(c): EPMF-ResNet34 at epmf_a2d2.yaml's full width (bf16, random
+    weights from a seed): A2D2Inference.run over 4 scans (K1 once a scan),
+    the batched validation view at batch 10, then the A2D2 Trainer at batch
+    6, 320x960 (multi-task loss, image-domain Lovász: K2 only). Returns the
+    eval paths' and the Trainer's launch counts."""
+    from pmf_tpu_torch.models import build_model, random_weights
+    from pmf_tpu_torch.tools.infer_a2d2 import A2D2Inference
+
+    opts = a2d2_opts(n_epochs=5, warmup_epochs=1)
+    torch.manual_seed(0)
+    model = random_weights(build_model(opts), seed=0).to(dev)
+    scans = a2d2_scans(raw)
+    A2D2Inference(opts, model, scans, 1, dev).run()                 # warm-up scan
+    reset_launches()
+    report = A2D2Inference(opts, model, scans, 4, dev).run()
+    launches = read_launches()
+    if launches != {"zbuffer_keys": 4, "rasterize_zbuffer": 0} or \
+            not all(np.isfinite(v) for v in report.values()):
+        fail(f"[a2d2] (c) A2D2Inference over 4 scans: {report}, launches {launches}")
+    print(f"[a2d2] (c) A2D2Inference.run (EPMF, bf16, {AEH}x{AEW} window, {AN} points): "
+          f"{report['ms_per_scan']:.2f} ms/scan over 4 scans (window, forward, labels; after one "
+          f"warm-up scan); point mIoU {report['mIoU']:.4f}; launches {json.dumps(launches)} on "
+          f"{smi}")
+    with torch.inference_mode():
+        inference = A2D2Inference(opts, model, scans, 1, dev)
+        profile_step(lambda: inference.scan(scans(0)), smi, name="one scan of A2D2Inference.run")
+    batched = a2d2_batched_eval(dev, model, raw, smi)
+    eval_launches = {k: launches[k] + batched[k] for k in launches}
+    train = train_path(dev, smi, "[a2d2] (c)", "EPMF-ResNet34 A2D2", opts, raw, (ATH, ATW),
+                       (AEH, AEW), ("rasterize_zbuffer",), model=model, keys=PIX_KEYS)
+    if train["zbuffer_keys"] != 0:
+        fail(f"[a2d2] (c) K1 was launched on the A2D2 train path (no point Lovász): {train}")
+    return eval_launches, train
+
+
+def write_sensat_frame(frame: dict, fields: dict, root) -> None:
+    """The tile as prepare_bev_frames and the label dump leave it: val/tile
+    .npz, .ply and .bin under `root`, and train/ the same files."""
+    import os
+
+    from pmf_tpu_torch.data.sensat_urban import write_ply
+
+    val = os.path.join(root, "val")
+    os.makedirs(val, exist_ok=True)
+    np.savez(os.path.join(val, "tile.npz"), **frame)
+    write_ply(os.path.join(val, "tile.ply"), fields)
+    fields["class"].tofile(os.path.join(val, "tile.bin"))
+    if not os.path.exists(os.path.join(root, "train")):
+        os.symlink("val", os.path.join(root, "train"))
+
+
+def sensat_paths(dev, smi):
+    """10(d): PMF-ResNet34 at pmf_sensat.yaml's width (base 32, float32,
+    TF32 off, random weights from a seed) on a synthetic tile of about 2e6
+    points over 120 x 120 m (SF x SF cells, written under build/):
+    SensatInference.run at scales 320, 448 and 576 with the 7 test-time
+    views (34 windows, 238 window views), then with the KNN lift; then the
+    SensatUrban Trainer at batch 4, 320x320 (Dice, AMSGrad) on windows cut by
+    the train reader. Returns the launch counts of its eval and train paths
+    (no kernel is on them)."""
+    import os
+
+    from pmf_tpu_torch.data import SensatUrban, build_sensat_batch, sensat_config
+    from pmf_tpu_torch.data.loader import sensat_sample_reader
+    from pmf_tpu_torch.data.synthetic import make_sensat_frame
+    from pmf_tpu_torch.models import PMFNet, random_weights
+    from pmf_tpu_torch.tools.infer_sensat import SensatInference
+
+    t0 = time.perf_counter()
+    frame, fields = make_sensat_frame(np.random.default_rng(35), int(2e6 * (SF / 1200) ** 2),
+                                      SF / 10)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "sensat_smoke")
+    write_sensat_frame(frame, fields, root)
+    print(f"[sensat] (d) synthetic tile: {len(fields['x'])} points, "
+          f"{'x'.join(map(str, frame['label_map'].shape))} cells, "
+          f"{(frame['label_map'] >= 0).mean():.4f} occupied; made and written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    opts = sensat_opts(n_epochs=5, warmup_epochs=1)
+    torch.manual_seed(0)
+    model = random_weights(PMFNet(nclasses=14, base_channels=32), seed=2).to(dev)
+    dataset = SensatUrban(root, "val", keep_idx=True)
+    make = lambda knn: SensatInference(opts, model, dataset, dev, SCALES, use_knn=knn)
+    with torch.inference_mode():                                  # one window of each size
+        for size in SCALES:
+            make(False).predict_window(torch.zeros((size, size, 8), device=dev))
+    reset_launches()
+    reports = [make(False).run(), make(True).run()]
+    eval_launches = read_launches()
+    for tag, r in zip(("TTA", "TTA + KNN"), reports):
+        if not all(np.isfinite(v) for v in r.values()) or "point_mIoU" not in r:
+            fail(f"[sensat] (d) SensatInference ({tag}): {r}")
+        print(f"[sensat] (d) SensatInference.run ({tag}, scales {SCALES}, float32): "
+              f"{r['ms_per_frame']:.2f} ms/frame, {r['ms_per_forward']:.3f} ms per window view "
+              f"(7 a forward); 2D mIoU {r['mIoU']:.4f}, point mIoU "
+              f"{r['point_mIoU']:.4f} on {smi}")
+    knn_ms = reports[1]["ms_per_frame"] - reports[0]["ms_per_frame"]
+    print(f"[sensat] (d) the KNN lift adds {knn_ms:.2f} ms/frame; launches "
+          f"{json.dumps(eval_launches)} (no kernel on this path)")
+    window = torch.as_tensor(frame["feature_map"][:, :SCALES[-1], :SCALES[-1]],
+                             device=dev).permute(1, 2, 0)
+    with torch.inference_mode():
+        profile_step(lambda: make(False).predict_window(window), smi,
+                     name=f"one {SCALES[-1]}x{SCALES[-1]} window, 7 test-time views, of "
+                     "SensatInference.run")
+
+    read = sensat_sample_reader(SensatUrban(root, "train"), sensat_config(opts, True), [0],
+                                rng=np.random.RandomState(opts.seed))
+    windows = [read(i) for i in range(2 * SBT)]
+    raw = [np.stack([w[k] for w in windows]) for k in ("feature_map", "label_map")]
+    train = train_path(dev, smi, "[sensat] (d)", "PMF-ResNet34 SensatUrban", opts, raw,
+                       (SS, SS), (2 * SS, 2 * SS), (), model=model,
+                       keys=("feature_map", "label_map"))
+    _, _, attempts = build_sensat_batch(*on([a[:SBT] for a in raw], dev),
+                                        sensat_config(opts, True), True,
+                                        torch.Generator(device=dev).manual_seed(1),
+                                        return_attempts=True)
+    print(f"[sensat] (d) the train crop's redraws: {attempts.tolist()} attempts for the "
+          f"{SBT} samples of a batch (at most 11, min_valid 0.1)")
+    return eval_launches, train
+
+
+def a2d2_sensat_phase(dev, smi):
+    """Phase 10: A2D2 and SensatUrban. Returns the kernels' A2D2 numbers
+    and launch counts, by kernel name; prints the time of each part."""
+    from pmf_tpu_torch.data.synthetic import make_a2d2_inputs
+
+    marks = [("", time.perf_counter())]
+    raw = make_a2d2_inputs(np.random.default_rng(30), 2 * ABT, AN, AN * 27000 // 32768, AH, AW)
+    marks.append(("data", time.perf_counter()))
+    out = check_a2d2_kernels(dev, raw, smi)
+    marks.append(("(a)", time.perf_counter()))
+    check_a2d2_sensat_reference(dev)
+    marks.append(("(b)", time.perf_counter()))
+    launches_eval, launches_train = a2d2_paths(dev, raw, smi)
+    del raw
+    marks.append(("(c)", time.perf_counter()))
+    sensat_eval, sensat_train = sensat_paths(dev, smi)
+    marks.append(("(d)", time.perf_counter()))
+    print(f"[sensat] (d) launches: eval {json.dumps(sensat_eval)}, train "
+          f"{json.dumps(sensat_train)}")
+    print("[time] phase 10: " + ", ".join(f"{name} {t - t0:.1f} s" for (_, t0), (name, t)
+                                           in zip(marks, marks[1:])))
+    for name in out:
+        out[name]["launches_a2d2"] = launches_eval[name]
+        out[name]["launches_a2d2_train"] = launches_train[name]
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA card")
@@ -1556,9 +1957,9 @@ def main():
     print(smi)
     print(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
-    # float32 comparisons below must not run convolutions in TF32
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    from pmf_tpu_torch.utils import disable_tf32
+
+    disable_tf32()   # float32 comparisons below must not run convolutions in TF32
 
     from pmf_tpu_torch.data import PVConfig
     from pmf_tpu_torch.data.synthetic import make_inputs
@@ -1607,8 +2008,11 @@ def main():
     t_nusc = time.perf_counter()
     del batch_r
     nusc_numbers = nuscenes_phase(dev, smi)
+    t_a2d2 = time.perf_counter()
+    a2d2_numbers = a2d2_sensat_phase(dev, smi)
     print(f"[time] phases 1-7 {t_range - t_run:.1f} s, phase 8 {t_nusc - t_range:.1f} s, phase 9 "
-          f"{time.perf_counter() - t_nusc:.1f} s (the build included in phase 2)")
+          f"{t_a2d2 - t_nusc:.1f} s, phase 10 {time.perf_counter() - t_a2d2:.1f} s (the build "
+          "included in phase 2)")
     range_keys = ("range_max_abs_err", "range_ms", "range_device_ms", "range_plain_ms",
                   "range_bound_ms", "range_bound_by", "range_library_ms")
     for e in entries:
@@ -1621,6 +2025,7 @@ def main():
         e.update(epmf_numbers[e["name"]])
         e.update({k: range_numbers[e["name"]].get(k) for k in range_keys})
         e.update(nusc_numbers[e["name"]])
+        e.update(a2d2_numbers[e["name"]])
     keys = ("name", "route", "source", "replaces", "launches", "launches_train", "launches_epmf",
             "launches_epmf_train", "launches_salsanext", "launches_salsanext_train",
             "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -1629,7 +2034,10 @@ def main():
             "launches_nusc_train", "launches_nusc_epmf", "launches_nusc_epmf_train",
             "launches_nusc_salsanext",
             "nusc_max_abs_err", "nusc_ms", "nusc_device_ms", "nusc_plain_ms", "nusc_bound_ms",
-            "nusc_bound_by", "nusc_library_ms")
+            "nusc_bound_by", "nusc_library_ms", "launches_a2d2", "launches_a2d2_train",
+            *(p + k for p in ("a2d2_", "a2d2_val_")
+              for k in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                        "library_ms")))
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

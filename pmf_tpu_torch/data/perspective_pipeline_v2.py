@@ -4,7 +4,8 @@
 The points are cropped by yaw (±45°, or each scan's own pair `fovs`) with no
 image-bound test and projected into the camera (with `cam_frame`, nuScenes'
 points already in the camera frame are cropped by their yaw about (z, x)
-and their depth z); their truncated integer pixels give a tight box around
+and their depth z; A2D2's points come with their pixels, `pix`, and every
+valid point is kept); their truncated integer pixels give a tight box around
 them, padded to at least the output size (below, and centred in width).
 Train: the 3D point augmentation when cfg.pcd_aug, a random image scale
 (1.0-1.2) before the box, then a horizontal flip, a rotation about the box's
@@ -13,8 +14,9 @@ coordinate arithmetic, so the points go straight into the fixed output
 window, and the RGB is one inverse-map sample of the image canvas: bilinear
 in train (after the ColorJitter), a separable integer gather at eval.
 
-`build_v2_batch` fills a batch through the K2 rasterizer and, with
-`return_points`, gives the points' winner flags through K1;
+`build_v2_batch` (and `build_v2_batch_pix`, on the points' own pixels)
+fills a batch through the K2 rasterizer and, with `return_points`, gives
+the points' winner flags through K1;
 `build_v2_eval_sample_with_uproj`, the per-scan path, fills through K1 and
 a gather. Each runs its CUDA kernel when the tensors are on the card and
 its plain PyTorch version on the CPU.
@@ -37,12 +39,15 @@ from .perspective_pipeline import (PVConfig, _round_to_int32, augmented_points, 
                                    scan_sizes)
 
 
+A2D2_NAMES = ("a2d2", "A2D2")   # the `dataset` names of A2D2
+
+
 @dataclass(frozen=True)
 class V2Config:
     """Static view geometry (the YAML `PVconfig` group)."""
     canvas_h: int = 384       # RGB image canvas (unscaled)
     canvas_w: int = 1248
-    proj_h: int = 384         # eval output (EPMF needs multiples of 64)
+    proj_h: int = 384         # eval output (EPMF needs multiples of 32)
     proj_w: int = 1280
     proj_ht: int = 320        # train output
     proj_wt: int = 1024
@@ -68,13 +73,15 @@ def v2_config(opts) -> V2Config:
     `sensor` group where there is none), with `pcd_mean`/`pcd_stds` as the
     normalization, and from the `augmentation` group the ColorJitter
     strengths of `img_jitter` (0.4 each unless set; null turns it off) and
-    the 3D point augmentation that `pcd_aug: true` turns on."""
+    the 3D point augmentation that `pcd_aug: true` turns on. A2D2's canvas
+    is 1208x1920 unless set."""
     pv = opts.group("PVconfig") or opts.group("sensor")
     aug_group = opts.group("augmentation")
     jitter = aug_group.get("img_jitter", (0.4, 0.4, 0.4))
+    canvas = (1208, 1920) if opts.dataset in A2D2_NAMES else (384, 1248)
     return V2Config(
-        canvas_h=int(pv.get("canvas_h", 384)),
-        canvas_w=int(pv.get("canvas_w", 1248)),
+        canvas_h=int(pv.get("canvas_h", canvas[0])),
+        canvas_w=int(pv.get("canvas_w", canvas[1])),
         proj_h=int(pv.get("proj_h", 320)),
         proj_w=int(pv.get("proj_w", 1280)),
         proj_ht=int(pv.get("proj_ht", 320)),
@@ -122,7 +129,7 @@ def _bbox(v, keep):
 
 def v2_view_geometry(points, labels, valid, proj_matrix, image, img_h, img_w, cfg: V2Config,
                      train: bool = False, generator: torch.Generator | None = None,
-                     aug_override: V2AugParams | None = None, fovs=None):
+                     aug_override: V2AugParams | None = None, fovs=None, pix=None):
     """Project, box and crop a batch of scans without the fill: the eval
     view, or the train view with its parameters drawn from `generator` or
     given by `aug_override`, in pmf_tpu's float32 arithmetic and order.
@@ -130,8 +137,11 @@ def v2_view_geometry(points, labels, valid, proj_matrix, image, img_h, img_w, cf
     points [B, N, 4], labels [B, N], valid [B, N], proj_matrix [B, 3, 4],
     image [B, Hc, Wc, 3], img_h/img_w [B] int; fovs [B, 2] float32 each
     scan's (fov_left, fov_right) radians, or None for the config's pair.
-    Returns per point (rows, cols int32, keep bool, depth f32, vals
-    [B, N, 6] = depth/x/y/z/i/label) and the RGB view [B, H, W, 3].
+    `pix` = (rows, cols) [B, N] int: the points' own pixels (A2D2), which
+    take the place of the projection and its crop (`proj_matrix` and `fovs`
+    are not read, and every valid point is kept). Returns per point (rows,
+    cols int32, keep bool, depth f32, vals [B, N, 6] = depth/x/y/z/i/label)
+    and the RGB view [B, H, W, 3].
     """
     B, dev = points.shape[0], points.device
     out_h, out_w = (cfg.proj_ht, cfg.proj_wt) if train else (cfg.proj_h, cfg.proj_w)
@@ -150,10 +160,15 @@ def v2_view_geometry(points, labels, valid, proj_matrix, image, img_h, img_w, cf
         points = augmented_points(points, cfg, points_aug)
     b1 = lambda t: t[:, None]                                      # [B] → [B, 1]
 
-    fov_l, fov_r = (cfg.fov_left, cfg.fov_right) if fovs is None else (fovs[:, :1], fovs[:, 1:])
-    crop = cam_frame_crop_project if cfg.cam_frame else yaw_crop_project
-    extra = (cfg.min_depth_cam,) if cfg.cam_frame else ()
-    rows_f, cols_f, keep = crop(points[..., :3], proj_matrix, fov_l, fov_r, *extra, valid=valid)
+    if pix is not None:
+        rows_f, cols_f, keep = pix[0].float(), pix[1].float(), valid
+    else:
+        fov_l, fov_r = (cfg.fov_left, cfg.fov_right) if fovs is None else \
+            (fovs[:, :1], fovs[:, 1:])
+        crop = cam_frame_crop_project if cfg.cam_frame else yaw_crop_project
+        extra = (cfg.min_depth_cam,) if cfg.cam_frame else ()
+        rows_f, cols_f, keep = crop(points[..., :3], proj_matrix, fov_l, fov_r, *extra,
+                                    valid=valid)
     # truncation to int, as the reference's astype(np.int32)
     x = saturating_int32(torch.trunc(rows_f * b1(scale)))
     y = saturating_int32(torch.trunc(cols_f * b1(scale)))
@@ -261,16 +276,27 @@ def build_v2_batch(points, labels, valid, proj_matrix, images, img_h, img_w, cfg
                            train, generator, aug_override, return_points, fovs=fovs)
 
 
+def build_v2_batch_pix(points, labels, valid, rows, cols, images, img_h, img_w,
+                       cfg: V2Config, train: bool = False,
+                       generator: torch.Generator | None = None,
+                       aug_override: V2AugParams | None = None, return_points: bool = False):
+    """`build_v2_batch` over the points' own pixels rows/cols [B, N] int32
+    (A2D2's stored indices) in place of a projection: the tight box spans
+    every valid point, as in pmf_tpu (no image-bound test)."""
+    return _build_v2_batch(points, labels, valid, None, images, img_h, img_w, cfg, train,
+                           generator, aug_override, return_points, pix=(rows, cols))
+
+
 def _build_v2_batch(points, labels, valid, proj_matrix, images, img_h, img_w, cfg: V2Config,
                     train: bool = False, generator=None, aug_override=None,
                     return_points: bool = False, fill=rasterize_zbuffer, keys=zbuffer_keys,
-                    fovs=None):
-    """`build_v2_batch` with the rasterizer `fill` and the key scatter-min
-    `keys` (the K2 and K1 wrappers, or their plain versions where the two
-    are compared)."""
+                    fovs=None, pix=None):
+    """`build_v2_batch` (or, with `pix`, `build_v2_batch_pix`) with the
+    rasterizer `fill` and the key scatter-min `keys` (the K2 and K1
+    wrappers, or their plain versions where the two are compared)."""
     H, W = (cfg.proj_ht, cfg.proj_wt) if train else (cfg.proj_h, cfg.proj_w)
     geometry = v2_view_geometry(points, labels, valid, proj_matrix, images, img_h, img_w, cfg,
-                                train, generator, aug_override, fovs)
+                                train, generator, aug_override, fovs, pix)
     return fill_view(geometry, labels, H, W, cfg, return_points, fill, keys)
 
 

@@ -1,6 +1,7 @@
 """Synthetic KITTI-like scans at the eval benchmark's sizes, range-view
-scans, and nuScenes-like keyframes, made from a numpy generator in memory
-(no files, no PIL).
+scans, nuScenes-like keyframes, A2D2-like scans with their stored pixels
+and a SensatUrban-like BEV tile, made from a numpy generator in memory (no
+files, no PIL).
 
 The points, labels and image are drawn as `bench.py: make_inputs` draws
 them (x 2-70 m, y ±20 m, z -2-1 m; a random RGB canvas 16 columns wider
@@ -128,3 +129,67 @@ def nuscenes_camera_frame(points: np.ndarray, h: int = 900, w: int = 1600):
         proj[b, :, :3] = K
         fovs[b] = np.deg2rad(FOV_ANGLE_V2[CAMERAS[b % 6]])
     return out, proj, fovs
+
+
+A2D2_H, A2D2_W, A2D2_FX = 1208, 1920, 1000.0  # A2D2's front-centre camera frame
+
+
+def make_a2d2_inputs(rng: np.random.Generator, batch: int, n_points: int = 32768,
+                     n_returns: int = 27000, h: int = A2D2_H, w: int = A2D2_W,
+                     nclasses: int = 39):
+    """A2D2-like scans as `a2d2_sample_reader` gives them, stacked: (points
+    [B, N, 4], labels [B, N], valid [B, N], rows [B, N] int32, cols [B, N]
+    int32, image [B, h, w, 3] in [0, 1), img_h [B], img_w [B]). A scan is
+    `n_returns` returns at 2-80 m in front of a pinhole camera (fx = fy =
+    1000, centred on the h x w image) with their pixels stored as A2D2
+    stores them, all inside the image, a tenth of them copies of others
+    (ties in the z-buffer), padded to `n_points`; `nclasses`-class labels."""
+    B, R = batch, n_returns
+    u = rng.uniform(0, w - 1, (B, R))
+    v = rng.uniform(0.3 * h, h - 1, (B, R))          # the lower two thirds of the image
+    depth = rng.uniform(2, 80, (B, R))
+    x = depth / np.sqrt(1 + ((u - w / 2) / A2D2_FX) ** 2 + ((v - h / 2) / A2D2_FX) ** 2)
+    pts = np.zeros((B, n_points, 4), np.float32)
+    pts[:, :R] = np.stack([x, -(u - w / 2) / A2D2_FX * x, -(v - h / 2) / A2D2_FX * x,
+                           rng.uniform(0, 1, (B, R))], -1)
+    rows = np.zeros((B, n_points), np.int32)
+    cols = np.zeros((B, n_points), np.int32)
+    rows[:, :R] = (v + 0.5).astype(np.int32)
+    cols[:, :R] = (u + 0.5).astype(np.int32)
+    for a in (pts, rows, cols):
+        a[:, R // 2:R // 2 + R // 10] = a[:, :R // 10]
+    labels = np.zeros((B, n_points), np.int32)
+    labels[:, :R] = rng.integers(0, nclasses, (B, R))
+    valid = np.zeros((B, n_points), bool)
+    valid[:, :R] = True
+    image = rng.random((B, h, w, 3), dtype=np.float32)
+    return (pts, labels, valid, rows, cols, image, np.full((B,), h, np.int32),
+            np.full((B,), w, np.int32))
+
+
+def make_sensat_frame(rng: np.random.Generator, n_points: int = 2_000_000,
+                      extent: float = 120.0, n_classes: int = 13) -> dict:
+    """A SensatUrban-like tile: `n_points` points over `extent` x `extent`
+    m of ground at 0-3 m with box buildings up to 40 m on part of it, RGB in
+    0-255 and `n_classes` classes (buildings class 2), rasterized by
+    `compute_bev_feature` at 0.1 m (about extent / 0.1 cells a side).
+    Returns the BEV frame {feature_map, label_map, h_idx, w_idx} and the
+    points' {x, y, z, red, green, blue, class} as a .ply holds them."""
+    from .sensat_urban import compute_bev_feature
+
+    x = rng.uniform(0, extent, n_points)
+    y = rng.uniform(0, extent, n_points)
+    z = 3.0 * (np.sin(x / 17.0) + 1) / 2 + rng.normal(0, 0.05, n_points)
+    cls = rng.integers(0, n_classes, n_points)
+    for cx, cy, size, height in rng.uniform((0, 0, 5, 5), (extent, extent, 20, 40), (30, 4)):
+        inside = (np.abs(x - cx) < size / 2) & (np.abs(y - cy) < size / 2)
+        z[inside] = rng.uniform(0, height, int(inside.sum()))
+        cls[inside] = 2
+    fields = {"x": x.astype(np.float32), "y": y.astype(np.float32), "z": z.astype(np.float32),
+              "red": rng.integers(0, 256, n_points).astype(np.uint8),
+              "green": rng.integers(0, 256, n_points).astype(np.uint8),
+              "blue": rng.integers(0, 256, n_points).astype(np.uint8),
+              "class": cls.astype(np.uint8)}
+    pc = np.stack([fields[k] for k in ("x", "y", "z", "red", "green", "blue", "class")],
+                  1).astype(np.float64)
+    return compute_bev_feature(pc, 0.1), fields

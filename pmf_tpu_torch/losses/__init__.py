@@ -1,3 +1,4 @@
+from .dice import dice_loss, explog_dice_loss
 from .focal import focal_softmax_loss, one_hot
 from .kl import kl_div
 from .lovasz import (lovasz_softmax_loss, lovasz_softmax_loss_points,

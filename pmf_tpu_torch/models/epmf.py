@@ -159,8 +159,8 @@ class RGBDecoderV2(RGBDecoder):
 class EPMFNet(nn.Module):
     """Efficient PMF: forward(pcd [N, H, W, 5], img [N, H, W, 3]) →
     (lidar_probs, camera_probs), each [N, H, W, nclasses] float32; H and W
-    must be multiples of 64 (the half-resolution lidar stream pools 5
-    times).
+    must be multiples of 32 (the lidar stream runs at half resolution and
+    pools 4 times; A2D2's eval view is 480 rows).
 
     `dtype` is the compute dtype (float32 or bfloat16); parameters and BN
     statistics stay float32. In train mode the channel dropout draws its
@@ -182,8 +182,8 @@ class EPMFNet(nn.Module):
                                               dropout_rate=dropout_rate)
 
     def forward(self, pcd_feature, img_feature, generator=None):
-        if pcd_feature.shape[1] % 64 or pcd_feature.shape[2] % 64:
-            raise ValueError(f"EPMFNet needs sizes divisible by 64: {tuple(pcd_feature.shape)}")
+        if pcd_feature.shape[1] % 32 or pcd_feature.shape[2] % 32:
+            raise ValueError(f"EPMFNet needs sizes divisible by 32: {tuple(pcd_feature.shape)}")
         pcd = pcd_feature.permute(0, 3, 1, 2).to(self.dtype)
         img = img_feature.permute(0, 3, 1, 2).to(self.dtype)
         img_feats = self.camera_stream_encoder(img, generator)

@@ -34,7 +34,7 @@ from ..data import (
 from ..metrics import IOUEval
 from ..models import build_model, load_weights
 from ..ops import argmax_last, knn_postprocess
-from ..utils import resolve_device
+from ..utils import disable_tf32, resolve_device
 from ..utils.tables import latex_row, matrix_report, per_class_report
 
 log = logging.getLogger(__name__)
@@ -163,6 +163,7 @@ def main(argv=None) -> dict:
     parser.add_argument("--max-scans", type=int, default=-1)
     parser.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = parser.parse_args(argv)
+    disable_tf32()
     logging.basicConfig(level=logging.INFO, format="%(message)s")
 
     inf = Inference.from_files(load_options(args.config), args.weights,

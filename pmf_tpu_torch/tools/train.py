@@ -1,5 +1,6 @@
 """Train PMFNet, EPMFNet or SalsaNext (`net_type`) on SemanticKITTI or
-nuScenes (`dataset`) (counterpart of `pmf_tpu/tools/train.py`).
+nuScenes, EPMFNet on A2D2 or PMFNet on SensatUrban (`dataset`) (counterpart
+of `pmf_tpu/tools/train.py`).
 
 Usage:
   python -m pmf_tpu_torch.tools.train <config.yaml> [--val-only] [--debug]
@@ -9,12 +10,13 @@ The run directory is <save_path>/<dataset>-<net>-<backbone>-bs<bs>-lr<lr>-<id>
 (Options.run_dir): log/experiment.log, and under checkpoint/ the resume
 checkpoint (every epoch) and the best_{Acc,IOU,Recall,last}_model.pth
 snapshots, which `tools/infer_kitti.py --weights` loads (SalsaNext's:
-`tools/infer_salsanext.py --weights`). `checkpoint: <any
+`tools/infer_salsanext.py --weights`; A2D2's `tools/infer_a2d2.py`,
+SensatUrban's `tools/infer_sensat.py`). `checkpoint: <any
 value>` in the config resumes from the run directory's checkpoint. --debug
 runs one iteration per epoch (on nuScenes, from the v1.0-mini DB). A model
 without `pretrained_weights` starts from pmf_tpu's initialization, drawn
 after `torch.manual_seed(seed)`. The run is on the card unless --device cpu is
-given.
+given; float32 convolutions there run in float32 (TF32 off).
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ import torch
 from ..config import load_options
 from ..models import build_model
 from ..train import CheckpointManager, Trainer
-from ..utils import resolve_device
+from ..utils import disable_tf32, resolve_device
 
 log = logging.getLogger(__name__)
 
@@ -81,6 +83,7 @@ def main(argv=None) -> dict:
     parser.add_argument("--debug", action="store_true")
     parser.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = parser.parse_args(argv)
+    disable_tf32()
     overrides = {}
     if args.val_only:
         overrides["val_only"] = True

@@ -3,7 +3,8 @@
 `HybridOptimizer`, PMF's: AdamW (betas 0.9/0.999, eps 1e-8, weight decay
 0.01) on the lidar stream, any other top-level module and the `extra`
 parameters beside the model (EPMF's multi-task σ); SGD with Nesterov
-momentum and coupled weight decay on the two camera streams. `adamw`,
+momentum and coupled weight decay on the two camera streams; with
+`amsgrad` (SensatUrban) the AdamW group is `AMSGradW`. `adamw`,
 SalsaNext's: the same AdamW on every parameter. torch's AdamW and
 SGD(nesterov=True) compute the updates of optax's adamw and
 add_decayed_weights + sgd chains; each takes its learning rate from one
@@ -21,6 +22,41 @@ CAMERA_KEYS = ("camera_stream_encoder", "camera_stream_decoder")
 
 def _adamw(params, lr: float) -> torch.optim.AdamW:
     return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.01)
+
+
+class AMSGradW(torch.optim.Optimizer):
+    """AdamW with AMSGrad as optax's chain scale_by_amsgrad →
+    add_decayed_weights(weight_decay) → scale_by_learning_rate computes it:
+    μ and ν are Adam's moments, ν̂ = ν / (1 - β2^t) their bias-corrected
+    second moment, and the step divides μ / (1 - β1^t) by
+    sqrt(max over steps of ν̂) + eps, then adds weight_decay · p, all times
+    -lr. (torch's AdamW(amsgrad=True) keeps the maximum of the raw ν and
+    bias-corrects that with the current step: another update.)"""
+
+    def __init__(self, params, lr: float, betas=(0.9, 0.999), eps: float = 1e-8,
+                 weight_decay: float = 0.01):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps, weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self):
+        for group in self.param_groups:
+            (b1, b2), eps = group["betas"], group["eps"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if not state:
+                    state["step"] = 0
+                    for k in ("mu", "nu", "nu_max"):
+                        state[k] = torch.zeros_like(p)
+                state["step"] += 1
+                t, g = state["step"], p.grad
+                mu = state["mu"].mul_(b1).add_(g, alpha=1 - b1)
+                nu = state["nu"].mul_(b2).addcmul_(g, g, value=1 - b2)
+                nu_max = torch.maximum(state["nu_max"], nu / (1 - b2 ** t),
+                                       out=state["nu_max"])
+                update = (mu / (1 - b1 ** t)) / (nu_max.sqrt() + eps)
+                p.add_(update + group["weight_decay"] * p, alpha=-group["lr"])
 
 
 class ScheduledOptimizer:
@@ -61,13 +97,14 @@ class ScheduledOptimizer:
 
 class HybridOptimizer(ScheduledOptimizer):
     def __init__(self, model: nn.Module, schedule: Callable[[int], float],
-                 momentum: float, weight_decay: float, camera_keys=CAMERA_KEYS, extra=()):
+                 momentum: float, weight_decay: float, camera_keys=CAMERA_KEYS, extra=(),
+                 amsgrad: bool = False):
         camera, other = [], []
         for name, p in model.named_parameters():
             (camera if name.split(".")[0] in camera_keys else other).append(p)
         other.extend(extra)
         super().__init__(schedule, {
-            "adamw": _adamw(other, schedule(0)),
+            "adamw": (AMSGradW if amsgrad else _adamw)(other, schedule(0)),
             "sgd": torch.optim.SGD(camera, lr=schedule(0), momentum=momentum, nesterov=True,
                                    weight_decay=weight_decay)})
 

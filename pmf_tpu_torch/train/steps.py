@@ -8,7 +8,8 @@ Lovász pair when the batch carries the points' winner flags, and the
 confusion matrices of both streams per batch. With `use_mtloss` (EPMF) the
 six terms are weighted instead by the learned σ of `multi_task_loss`, in
 the order [focal(cam), lovász(cam), perception(img), perception(pcd),
-focal(lidar), lovász(lidar)]. SalsaNext, LiDAR only: focal + λ·lovász
+focal(lidar), lovász(lidar)]. With `use_dice` (SensatUrban) each focal term
+also carries ExpLogDice over the labelled pixels. SalsaNext, LiDAR only: focal + λ·lovász
 (image domain) and one confusion matrix. The model's parameters, its BN
 statistics and the optimizer's moments are the train state; a train step
 updates them in place.
@@ -19,7 +20,7 @@ from dataclasses import dataclass
 
 import torch
 
-from ..losses import (focal_softmax_loss, lovasz_softmax_loss,
+from ..losses import (explog_dice_loss, focal_softmax_loss, lovasz_softmax_loss,
                       lovasz_softmax_loss_points_pair, multi_task_loss, normalized_entropy,
                       perception_aware_losses)
 from ..metrics.iou import confusion_matrix
@@ -36,6 +37,7 @@ class LossConfig:
     tau: float = 0.7           # confidence gate
     lovasz_ignore: int = 0
     use_mtloss: bool = False   # EPMF: learned uncertainty weighting
+    use_dice: bool = False     # SensatUrban: ExpLogDice added to both focal terms
 
 
 def pmf_losses(lidar_pred, camera_pred, label, cfg: LossConfig, points=None, mt_sigma=None):
@@ -54,6 +56,9 @@ def pmf_losses(lidar_pred, camera_pred, label, cfg: LossConfig, points=None, mt_
         loss_lov_cam = lovasz_softmax_loss(camera_pred, label, ignore=cfg.lovasz_ignore)
     loss_foc = focal_softmax_loss(lidar_pred, label, alpha, cfg.gamma_focal, label_mask)
     loss_foc_cam = focal_softmax_loss(camera_pred, label, alpha, cfg.gamma_focal, label_mask)
+    if cfg.use_dice:
+        loss_foc = loss_foc + explog_dice_loss(lidar_pred, label, label_mask)
+        loss_foc_cam = loss_foc_cam + explog_dice_loss(camera_pred, label, label_mask)
     loss_per_pcd, loss_per_img, _, _ = perception_aware_losses(lidar_pred, camera_pred, cfg.tau)
     loss_per = loss_per_pcd + loss_per_img
     if cfg.use_mtloss:

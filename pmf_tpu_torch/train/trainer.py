@@ -1,18 +1,21 @@
-"""PMFNet, EPMFNet and SalsaNext training on SemanticKITTI and nuScenes
-(counterpart of the PMF, EPMF and SalsaNext branches of
+"""PMFNet, EPMFNet and SalsaNext training on SemanticKITTI and nuScenes,
+EPMFNet on A2D2 and PMFNet on SensatUrban (counterpart of
 `pmf_tpu/train/trainer.py`).
 
 The Trainer batches samples from readers (`reader(i)` → the numpy sample
-dict of `data.kitti_sample_reader` or `data.nuscenes_sample_reader`, or for
-SalsaNext of `data.range_sample_reader`), builds the train view on the
-device (PMF:
-`build_batch`, EPMF: the V2 view `build_v2_batch`, K2 for the canvas and,
-with the point-domain Lovász, K1 for the points' winner flags; SalsaNext:
-the range view `build_range_batch`, K1 for its z-buffer), and runs the train
-step: the model in train mode, the losses (`pmf_losses`, weighted by the
-learned multi-task σ with `use_mtloss`; `salsanext_losses`), backward, the
-optimizer's update (the hybrid AdamW/SGD; AdamW for SalsaNext), the
-confusion matrices. Validation runs the eval view and the eval step.
+dict of `data.kitti_sample_reader`, `data.nuscenes_sample_reader` or
+`data.a2d2_sample_reader`, for SalsaNext of `data.range_sample_reader`, for
+SensatUrban of `data.sensat_sample_reader`), builds the train view on the
+device (PMF: `build_batch`, EPMF: the V2 view `build_v2_batch`, on A2D2's
+stored pixels `build_v2_batch_pix`, K2 for the canvas and, with the
+point-domain Lovász, K1 for the points' winner flags; SalsaNext: the range
+view `build_range_batch`, K1 for its z-buffer; SensatUrban: the BEV crop
+`build_sensat_batch`, no kernel), and runs the train step: the model in
+train mode, the losses (`pmf_losses`, weighted by the learned multi-task σ
+with `use_mtloss`, with ExpLogDice on SensatUrban; `salsanext_losses`),
+backward, the optimizer's update (the hybrid AdamW/SGD, its AdamW group
+with AMSGrad on SensatUrban; AdamW for SalsaNext), the confusion
+matrices. Validation runs the eval view and the eval step.
 Per-iteration log lines carry the data and process times, the learning
 rate, the loss, Acc/IoU/Recall (and the image stream's for the fusion nets)
 and the remaining time.
@@ -21,15 +24,19 @@ from __future__ import annotations
 
 import datetime
 import logging
+import os
 import time
 from typing import Callable
 
 import numpy as np
 import torch
 
-from ..data import (Nuscenes, SemanticKitti, build_batch, build_range_batch, build_v2_batch,
-                    kitti_sample_reader, nuscenes_sample_reader, range_config,
-                    range_sample_reader, view_config)
+from ..data import (A2D2_PV, Nuscenes, SemanticKitti, SensatUrban, a2d2_sample_reader,
+                    build_batch, build_range_batch, build_sensat_batch, build_v2_batch,
+                    build_v2_batch_pix, kitti_sample_reader, nuscenes_sample_reader,
+                    range_config, range_sample_reader, sensat_config, sensat_frame_weights,
+                    sensat_sample_reader, view_config)
+from ..data.perspective_pipeline_v2 import A2D2_NAMES
 from ..losses import init_multi_task_params
 from ..metrics import IOUEval
 from ..utils import AverageMeter, RemainTime
@@ -43,7 +50,10 @@ log = logging.getLogger(__name__)
 TRAIN_SEQUENCES = [0, 1, 2, 3, 4, 5, 6, 7, 9, 10]
 VAL_SEQUENCES = [8]
 _VIEW_KEYS = ("points", "labels", "valid", "proj_matrix", "image", "img_h", "img_w")
+_PIX_KEYS = ("points", "labels", "valid", "rows", "cols", "image", "img_h", "img_w")
 _RANGE_KEYS = ("points", "labels", "valid")
+_SENSAT_KEYS = ("feature_map", "label_map")
+SENSAT_RARE_ALPHA = {4: 2.0, 5: 2.5, 7: 3.0, 12: 10.0, 13: 2.5}
 
 
 def kitti_focal_alpha(cls_freq: np.ndarray, learning_ignore: dict) -> np.ndarray:
@@ -75,6 +85,16 @@ def nuscenes_focal_alpha(nclasses: int) -> np.ndarray:
     """nuScenes' alpha: 1 for every class but class 0 (ignored)."""
     alpha = np.ones((nclasses,), np.float32)
     alpha[0] = 0.0
+    return alpha
+
+
+def sensat_focal_alpha(nclasses: int) -> np.ndarray:
+    """SensatUrban's alpha: 1, class 0 (empty) at 0, the rare classes raised
+    by hand (SENSAT_RARE_ALPHA)."""
+    alpha = nuscenes_focal_alpha(nclasses)
+    for cl, a in SENSAT_RARE_ALPHA.items():
+        if cl < nclasses:
+            alpha[cl] = a
     return alpha
 
 
@@ -112,10 +132,21 @@ class Trainer:
         self.opts, self.model, self.device = opts, model, device
         self.readers = {"Train": (train_reader, n_train), "Validation": (val_reader, n_val)}
         self.is_range = opts.net_type == "SalsaNext"
-        self.view_cfg = range_config(opts) if self.is_range else view_config(opts)
-        self.build = build_v2_batch if opts.net_type == "EPMFNet" else build_batch
+        self.is_sensat = opts.dataset == "SensatUrban"
+        if self.is_range:
+            self.view_cfg, self.view_keys = range_config(opts), _RANGE_KEYS
+        elif self.is_sensat:
+            self.view_cfg = {t: sensat_config(opts, t) for t in (True, False)}
+            self.view_keys = _SENSAT_KEYS
+        else:
+            self.view_cfg = view_config(opts)
+            pix = opts.dataset in A2D2_NAMES
+            self.view_keys = _PIX_KEYS if pix else _VIEW_KEYS
+            self.build = build_v2_batch_pix if pix else \
+                build_v2_batch if opts.net_type == "EPMFNet" else build_batch
         self.class_names = class_names or {}
-        self.point_lovasz = bool(opts.config.get("point_lovasz", True)) and not self.is_range
+        self.point_lovasz = bool(opts.config.get("point_lovasz", True)) and not \
+            (self.is_range or self.is_sensat)
         use_mtloss = bool(opts.config.get("use_mtloss")) and not self.is_range
         self.mt_sigma = torch.nn.Parameter(init_multi_task_params(6, device)) \
             if use_mtloss else None
@@ -125,7 +156,7 @@ class Trainer:
             (opts.n_epochs - opts.warmup_epochs) * steps_per_epoch)
         self.loss_cfg = LossConfig(nclasses=opts.nclasses, alpha=tuple(float(a) for a in alpha),
                                    lambda_=opts.lambda_, gamma=opts.gamma, tau=opts.tau,
-                                   use_mtloss=use_mtloss)
+                                   use_mtloss=use_mtloss, use_dice=self.is_sensat)
         if self.is_range:
             self.optimizer = adamw(model, self.lr_schedule)
             self.train_step = make_salsanext_train_step(model, self.optimizer, self.loss_cfg)
@@ -133,7 +164,8 @@ class Trainer:
         else:
             self.optimizer = HybridOptimizer(model, self.lr_schedule, opts.momentum,
                                              opts.weight_decay,
-                                             extra=[self.mt_sigma] if use_mtloss else [])
+                                             extra=[self.mt_sigma] if use_mtloss else [],
+                                             amsgrad=self.is_sensat)
             self.train_step = make_pmf_train_step(model, self.optimizer, self.loss_cfg,
                                                   self.mt_sigma)
             self.eval_step = make_pmf_eval_step(model, self.loss_cfg, self.mt_sigma)
@@ -152,8 +184,29 @@ class Trainer:
         `nusc_version` (v1.0-mini under --debug, `is_debug`), split by
         `nusc_splits_file` or the official split, one item per (lidar,
         camera) pair for every net (SalsaNext reads only the scans); alpha
-        1 for every class but class 0."""
+        1 for every class but class 0. A2D2 (`a2d2` or `A2D2`): the train and
+        valid splits of `A2D2_PV` (`cams_lidars_json`, `class_index_json`,
+        `apply_excludes`), the train split validating when the valid one is
+        empty; alpha from the config's `cls_freq`. SensatUrban: the train
+        frames, indexed by `sensat_frame_weights`, each read as a random
+        window drawn from a RandomState seeded by opts.seed, and the val
+        frames tiled at proj_h x proj_w; alpha `sensat_focal_alpha`, the
+        class names shifted by one (0: ignore)."""
         is_range = opts.net_type == "SalsaNext"
+        if opts.dataset == "SensatUrban":
+            trainset = SensatUrban(opts.data_root, "train")
+            val_cfg = sensat_config(opts, False)
+            valset = SensatUrban(opts.data_root, "val", img_h=val_cfg.img_h,
+                                 img_w=val_cfg.img_w, use_crop=True)
+            weights = sensat_frame_weights(
+                trainset, int(opts.group("sensor").get("n_samples_split", 200)))
+            names = {k + 1: v for k, v in trainset.mapped_cls_name.items() if k >= 0}
+            names[0] = "ignore"
+            return cls(opts, model,
+                       sensat_sample_reader(trainset, sensat_config(opts, True), weights,
+                                            rng=np.random.RandomState(opts.seed)),
+                       len(weights), sensat_sample_reader(valset, val_cfg, train=False),
+                       len(valset), device, sensat_focal_alpha(opts.nclasses), names)
         if opts.dataset == "SemanticKitti":
             trainset = SemanticKitti(opts.data_root, TRAIN_SEQUENCES, has_image=not is_range)
             valset = SemanticKitti(opts.data_root, VAL_SEQUENCES, has_image=not is_range)
@@ -170,6 +223,18 @@ class Trainer:
                                 for split in ("train", "val"))
             alpha = nuscenes_focal_alpha(opts.nclasses)
             view_reader = nuscenes_sample_reader
+        elif opts.dataset in A2D2_NAMES:
+            paths = [opts.config.get(key, os.path.join(opts.data_root, name)) for key, name in
+                     (("cams_lidars_json", "cams_lidars.json"),
+                      ("class_index_json", "class_index.json"))]
+            excludes = bool(opts.config.get("apply_excludes", True))
+            trainset, valset = (A2D2_PV(opts.data_root, *paths, split=split,
+                                        apply_excludes=excludes)
+                                for split in ("train", "valid"))
+            if len(valset) == 0:    # a set smaller than the train split's fixed end
+                valset = trainset
+            alpha = config_focal_alpha(opts.config["cls_freq"])
+            view_reader = a2d2_sample_reader
         else:
             raise NotImplementedError(f"dataset {opts.dataset} is not ported yet")
         if is_range:
@@ -193,15 +258,18 @@ class Trainer:
                 feature, label, _ = build_range_batch(t["points"], t["labels"], t["valid"],
                                                       self.view_cfg, train, self.generator)
                 return feature, label, None
+            if self.is_sensat:
+                feature, label = build_sensat_batch(t["feature_map"], t["label_map"],
+                                                    self.view_cfg[train], train, self.generator)
+                return feature, label, None
             feature, _, label, *points = self.build(
-                *(t[k] for k in _VIEW_KEYS), self.view_cfg, train, self.generator,
+                *(t[k] for k in self.view_keys), self.view_cfg, train, self.generator,
                 return_points=self.point_lovasz)
         return feature, label, points[0] if points else None
 
     def _step(self, batch: dict, train: bool) -> dict:
-        keys = _RANGE_KEYS if self.is_range else _VIEW_KEYS
         feature, label, points = self.view(
-            {k: torch.from_numpy(batch[k]).to(self.device) for k in keys}, train)
+            {k: torch.from_numpy(batch[k]).to(self.device) for k in self.view_keys}, train)
         extra = () if self.is_range else (points,)
         if train:
             return self.train_step(feature, label, self.generator, *extra)

@@ -1,2 +1,2 @@
-from .device import resolve_device
+from .device import disable_tf32, resolve_device
 from .meters import AverageMeter, RemainTime

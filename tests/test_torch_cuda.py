@@ -425,3 +425,81 @@ def test_nuscenes_cam_view_kernels_match_plain(cuda_device):
     assert torch.equal(hit[:, :hw].view_as(m), m) and m.sum() > 3000
     lab_at = torch.cat([lab.view(3, -1), torch.zeros_like(lab.view(3, -1)[:, :1])], 1)
     assert torch.equal(lab_at.gather(1, win_pix)[won], plab[won])
+
+
+@pytest.mark.cuda
+def test_a2d2_kernels_match_plain(cuda_device):
+    """The A2D2 shapes (epmf_a2d2.yaml): K2 at the train view's batch, 6 x
+    32768 points into 320x960 (32-bit keys), and K1 on one eval scan, 32768
+    points into 480x1280 (15 index bits), with forced ties, equal to their
+    plain versions."""
+    N = 32768
+    args = [torch.from_numpy(a).to(cuda_device) for a in points_with_ties(27, 6, N, 320, 960)]
+    before = trast.rasterize_zbuffer.launches
+    canvas, mask = trast.rasterize_zbuffer(*args, 320, 960)
+    torch.cuda.synchronize()
+    assert trast.rasterize_zbuffer.launches == before + 1
+    want_c, want_m = trast.rasterize_zbuffer_plain(*args, 320, 960)
+    assert torch.equal(mask, want_m) and torch.equal(canvas, want_c)
+
+    rows, cols, depth, keep, _ = (torch.from_numpy(a).to(cuda_device)
+                                  for a in points_with_ties(28, 1, N, 480, 1280))
+    pix, key, nbits = packed_keys(rows, cols, depth, keep, 480, 1280, 1 / 64)
+    assert nbits == 15
+    before = tzbuf.zbuffer_keys.launches
+    got = tzbuf.zbuffer_keys(pix, key, 480, 1280)
+    torch.cuda.synchronize()
+    assert tzbuf.zbuffer_keys.launches == before + 1
+    assert torch.equal(got, tzbuf.zbuffer_keys_plain(pix, key, 480, 1280))
+
+
+@pytest.mark.cuda
+def test_a2d2_pix_view_kernel_matches_plain(cuda_device):
+    """The V2 view on A2D2's stored pixels (build_v2_batch_pix) at the
+    validation batch, 10 synthetic scans into 480x1280, and at the train
+    view's 320x960 with the winner flags: K2 and K1 equal the plain fills."""
+    from pmf_tpu_torch.data import V2Config, build_v2_batch_pix
+    from pmf_tpu_torch.data.perspective_pipeline_v2 import _build_v2_batch
+    from pmf_tpu_torch.data.synthetic import make_a2d2_inputs
+
+    raw = make_a2d2_inputs(np.random.default_rng(29), 10)
+    batch = [torch.from_numpy(a).to(cuda_device) for a in raw]
+    cfg = V2Config(canvas_h=1208, canvas_w=1920, proj_h=480, proj_w=1280, proj_ht=320,
+                   proj_wt=960, n_points=32768)
+    for train, b, points in ((False, 10, False), (True, 6, True)):
+        gen = lambda: torch.Generator(device=cuda_device).manual_seed(3)
+        one = [t[:b] for t in batch]
+        got = build_v2_batch_pix(*one, cfg, train, gen(), return_points=points)
+        want = _build_v2_batch(*one[:3], None, *one[5:], cfg, train, gen(), None, points,
+                               fill=trast.rasterize_zbuffer_plain, keys=tzbuf.zbuffer_keys_plain,
+                               pix=(one[3], one[4]))
+        assert all(torch.equal(a, b) for a, b in zip(got[:3], want[:3]))
+        if points:
+            assert all(torch.equal(a, b) for a, b in zip(got[3], want[3]))
+        assert got[1].sum() > b * 3000
+
+
+@pytest.mark.cuda
+def test_sensat_batch_card_matches_cpu(cuda_device):
+    """build_sensat_batch (no kernel) on the card against the CPU with the
+    same draws, their rotations quarter turns: the redraw selection and the
+    crops bit for bit. (A quarter turn maps the crop's cells near integer
+    source coordinates, so a last-place difference between the devices'
+    cos and sin cannot move a cell; at other angles a source within an ulp
+    of a half pixel could round either way.)"""
+    from pmf_tpu_torch.data import SensatConfig, build_sensat_batch
+    from pmf_tpu_torch.data.sensat_urban import draw_sensat_aug
+
+    rng = np.random.default_rng(30)
+    fm = rng.random((4, 8, 640, 640)).astype(np.float32)
+    fm[:, 4] = rng.random((4, 640, 640)) < 0.4
+    lm = np.where(fm[:, 4] > 0, rng.integers(0, 13, (4, 640, 640)), -1).astype(np.float32)
+    cfg = SensatConfig(min_valid=0.4)
+    aug = draw_sensat_aug(torch.Generator().manual_seed(1), 4, 640, 640, cfg)
+    aug = aug._replace(theta=torch.randint(-1, 3, aug.theta.shape).float() * (np.pi / 2))
+    cpu = build_sensat_batch(torch.from_numpy(fm), torch.from_numpy(lm), cfg, True,
+                             aug_override=aug)
+    card = build_sensat_batch(torch.from_numpy(fm).to(cuda_device),
+                              torch.from_numpy(lm).to(cuda_device), cfg, True,
+                              aug_override=type(aug)(*(t.to(cuda_device) for t in aug)))
+    assert all(torch.equal(a, b.cpu()) for a, b in zip(cpu, card))

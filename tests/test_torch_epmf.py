@@ -286,7 +286,7 @@ def test_epmfnet_matches_flax(epmf_port):
     _check_probs(lidar_t, lidar_j)
     _check_probs(cam_t, cam_j)
     with pytest.raises(ValueError):
-        epmf_port(torch.zeros(1, 32, 128, 5), torch.zeros(1, 32, 128, 3))
+        epmf_port(torch.zeros(1, 48, 128, 5), torch.zeros(1, 48, 128, 3))
 
 
 def test_epmfnet_bfloat16_convolutions_run_in_bfloat16(monkeypatch):
