@@ -103,7 +103,20 @@ Phases, each of which ends the run with a non-zero exit on failure:
      (K2 only; `launches_a2d2_train`); (d) PMF-ResNet34 SensatUrban
      (float32, TF32 off): SensatInference.run at scales 320/448/576 with
      the 7 test-time views (34 windows), then with KNN, and the Trainer at
-     batch 4, 320x320 with Dice and AMSGrad, with the redraws it took.
+     batch 4, 320x320 with Dice and AMSGrad, with the redraws it took;
+ 11. the training runtime: (a) tools/train.py's main on a SemanticKITTI tree
+     on disk (data/synthetic.py: write_kitti_tree, KT + KV scans of 32768
+     points with 1241x376 PNGs) at pmf_kitti.yaml's shapes with batch 8 and a
+     torchvision-named ResNet34 state_dict from a seed as pretrained_weights,
+     --overwrite-policy delete, 2 epochs: the encoder's tensors equal the
+     state_dict's, the run directory's layout (settings.json, log/, code/,
+     checkpoint/), finite losses, both kernels launched
+     (`launches_cli_train`); ms/step of epoch 1 against 6(c)'s in-memory
+     Trainer, the data-time share and which reader ran (native or numpy);
+     (b) init_distributed at world 1 on NCCL: the small float32 step of
+     parallel/dryrun.py with the group up equal to it without (1 ulp), the
+     full-width Trainer's ms/step without and with the group, both kernels
+     launched with it (`launches_ddp_train`).
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Without a CUDA card the script exits 1 and
@@ -111,7 +124,9 @@ prints neither.
 """
 import copy
 import json
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -139,6 +154,9 @@ PIX_KEYS = ("points", "labels", "valid", "rows", "cols", "image", "img_h", "img_
 # is about SF x SF cells (120 x 120 m at 0.1 m)
 SS, SBT, SF = 320, 4, 1200
 SCALES = (320, 448, 576)    # infer_sensat's default window sizes
+# the train CLI on files (phase 11): scans of sequences 00 (train) and 08 (validation), and
+# KITTI's image size
+KT, KV, KH, KW = 80, 16, 376, 1241
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 
@@ -798,9 +816,9 @@ def scan_reader(raw, n_pool: int, keys=None):
     return lambda i: {k: a[i % n_pool] for k, a in zip(keys, raw)}
 
 
-def full_width_train(dev, smi):
+def full_width_train(dev, smi, timing: dict | None = None):
     """(c): the Trainer at full width; returns the kernels' launch counts
-    over its train and validation runs."""
+    over its train and validation runs (its ms/step to `timing`)."""
     from pmf_tpu_torch.config import Options
     from pmf_tpu_torch.data.synthetic import make_inputs
 
@@ -810,11 +828,11 @@ def full_width_train(dev, smi):
                    compute_dtype="bfloat16", batch_size=(B, B), n_epochs=5, warmup_epochs=1)
     raw = make_inputs(np.random.default_rng(3), 2 * B, N, H, W)
     return train_path(dev, smi, "[train] (c)", "PMF-ResNet34", opts, raw, (TH, TW), (H, W),
-                      ("rasterize_zbuffer", "zbuffer_keys"))
+                      ("rasterize_zbuffer", "zbuffer_keys"), timing=timing)
 
 
 def train_path(dev, smi, tag, net, opts, raw, size_train, size_val, kernels_of_path,
-               model=None, keys=None):
+               model=None, keys=None, timing: dict | None = None):
     """The Trainer of `opts` on the in-memory samples `raw` (read under
     `keys`, as `scan_reader` reads them; 2 train batches an epoch, 1
     validation batch): 2 warm-up and 8 timed steps, one
@@ -822,11 +840,11 @@ def train_path(dev, smi, tag, net, opts, raw, size_train, size_val, kernels_of_p
     multi-task loss), a step split by CUDA events and a profiled step.
     It trains `model` (on `dev`), or the net of `opts` with random weights
     from a seed. Returns the kernels' launch counts over the train and
-    validation runs; each of `kernels_of_path` must have been launched."""
+    validation runs; each of `kernels_of_path` must have been launched. The
+    ms/step goes to `timing["ms_step"]` when given."""
     from pmf_tpu_torch.models import build_model, random_weights
     from pmf_tpu_torch.ops import rasterize, zbuffer
     from pmf_tpu_torch.train import Trainer, pmf_losses, salsanext_losses
-    from pmf_tpu_torch.train.trainer import batches
 
     bt, bv = opts.batch_size
     (th, tw), (vh, vw) = size_train, size_val
@@ -849,6 +867,8 @@ def train_path(dev, smi, tag, net, opts, raw, size_train, size_val, kernels_of_p
         runs.append(trainer.run(epoch, "Train"))
     torch.cuda.synchronize()
     ms_step = (time.perf_counter() - t0) / 8 * 1e3
+    if timing is not None:
+        timing["ms_step"] = ms_step
     train_conf = (trainer.metrics.conf.sum(), trainer.metrics_img.conf.sum())
     val = trainer.run(0, "Validation")
     val_conf = (trainer.metrics.conf.sum(), trainer.metrics_img.conf.sum())
@@ -880,7 +900,7 @@ def train_path(dev, smi, tag, net, opts, raw, size_train, size_val, kernels_of_p
         fail(f"{tag} a kernel of the train path was not launched: {launches}")
 
     # one more step, split by CUDA events (the trainer's pieces, in its order)
-    x = {k: torch.from_numpy(a).to(dev) for k, a in next(batches(reader, bt, bt, False)).items()}
+    x = {k: torch.from_numpy(a).to(dev) for k, a in next(trainer.batches("Train", 0)).items()}
     g, opt = trainer.generator, trainer.optimizer
     splits = []
     for _ in range(3):
@@ -905,7 +925,7 @@ def train_path(dev, smi, tag, net, opts, raw, size_train, size_val, kernels_of_p
         splits.append([ev[i].elapsed_time(ev[i + 1]) for i in range(5)])
     split = [statistics.median(c) for c in zip(*splits)]
     names = ("view", "forward", "loss", "backward", "optimizer")
-    profile_step(lambda: trainer._step(next(batches(reader, 2 * bt, bt, True)), True), smi)
+    profile_step(lambda: trainer._step(next(trainer.batches("Train", 0)), True), smi)
     lovasz = "point" if trainer.point_lovasz else "image-domain"
     inputs = f"{raw[0].shape[1]} points" if raw[0].ndim == 3 else \
         f"{raw[0].shape[-2]}x{raw[0].shape[-1]} frames"
@@ -1948,6 +1968,205 @@ def a2d2_sensat_phase(dev, smi):
     return out
 
 
+def read_epoch(log_path: str, mode: str, epoch: int) -> dict:
+    """The numbers of the Trainer's '{mode} epoch {epoch}: key value ...'
+    line in a run's experiment.log."""
+    with open(log_path) as f:
+        lines = [ln for ln in f if f"{mode} epoch {epoch}: " in ln]
+    if not lines:
+        fail(f"[cli] no '{mode} epoch {epoch}' line in {log_path}")
+    words = lines[-1].split(f"{mode} epoch {epoch}: ", 1)[1].split()
+    return {k: float(v) for k, v in zip(words[::2], words[1::2])}
+
+
+def cli_train(dev, smi, ref_ms: float) -> dict:
+    """11(a): tools/train.py's main on files, at pmf_kitti.yaml's shapes
+    with bench.py's batch: a SemanticKITTI tree (data/synthetic.py:
+    write_kitti_tree; KT scans in sequence 00, KV in 08) and a
+    torchvision-named ResNet34 state_dict from a seed as
+    `pretrained_weights`, 2 epochs, --overwrite-policy delete. Checks that
+    the encoder took the state_dict's tensors, the run directory's layout,
+    finite losses and both kernels launched; returns their counts."""
+    import yaml
+
+    from pmf_tpu_torch.config import load_options
+    from pmf_tpu_torch.data import native
+    from pmf_tpu_torch.data.synthetic import resnet_state_dict, write_kitti_tree
+    from pmf_tpu_torch.tools import train as train_cli
+
+    root = os.path.abspath(os.path.join("build", "cli_smoke"))
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    data = write_kitti_tree(root, {0: KT, 8: KV}, N, KH, KW, seed=12)
+    sd = resnet_state_dict(seed=13)
+    weights = os.path.join(root, "resnet34.pth")
+    torch.save(sd, weights)
+    t_write = time.perf_counter() - t0
+    with open(os.path.join("configs", "experiments", "pmf_kitti.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg["sensor"].update(canvas_h=H, canvas_w=W + 16, proj_h=H, proj_w=W, proj_ht=TH,
+                         proj_wt=TW, n_points=N)
+    cfg.update(save_path=os.path.join(root, "runs"), data_root=data, batch_size=[B, B],
+               n_epochs=2, pretrained_weights=weights)
+    path = os.path.join(root, "pmf_kitti.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    run_dir = load_options(path).run_dir
+    os.makedirs(os.path.join(run_dir, "stale"))         # what --overwrite-policy delete removes
+
+    loaded = {}
+    load = train_cli.load_pretrained_resnet
+
+    def load_and_keep(model, *args, **kw):
+        out = load(model, *args, **kw)
+        loaded.update({k: v.clone() for k, v in model.camera_stream_encoder.state_dict().items()})
+        return out
+
+    train_cli.load_pretrained_resnet = load_and_keep
+    reset_launches()
+    try:
+        t0 = time.perf_counter()
+        best = train_cli.main([path, "--overwrite-policy", "delete", "--device", dev.type])
+        torch.cuda.synchronize()
+        t_main = time.perf_counter() - t0
+    finally:
+        train_cli.load_pretrained_resnet = load
+    launches = read_launches()
+
+    wrong = [k for k, v in sd.items() if not k.startswith("fc.") and
+             not k.endswith("num_batches_tracked") and not torch.equal(loaded.get(k), v)]
+    if not loaded or wrong:
+        fail(f"[cli] (a) the encoder did not take the pretrained tensors: {wrong[:5]}")
+    want = ["settings.json", "log/experiment.log", "log/scalars.jsonl", "log/images",
+            "code/pmf_tpu_torch/tools/train.py", "checkpoint/checkpoint.pth",
+            *(f"checkpoint/best_{k}_model.pth" for k in ("Acc", "IOU", "Recall", "last"))]
+    missing = [w for w in want if not os.path.exists(os.path.join(run_dir, w))]
+    if missing or os.path.exists(os.path.join(run_dir, "stale")):
+        fail(f"[cli] (a) run directory {run_dir}: missing {missing}, or the stale entry kept")
+    with open(os.path.join(run_dir, "log", "scalars.jsonl")) as f:
+        scalars = [json.loads(line) for line in f]
+    tags = {r["tag"] for r in scalars}
+    losses = [r["value"] for r in scalars if "Loss" in r["tag"]]
+    needed = {f"{m}_{t}" for m in ("Train", "Validation")
+              for t in ("Loss", "meanIOU", "LossLovasz", "LossImageFocal", "Image_meanIOU")}
+    images = os.listdir(os.path.join(run_dir, "log", "images"))
+    if not needed <= tags or not losses or not np.all(np.isfinite(losses)) or not images:
+        fail(f"[cli] (a) scalars: missing {sorted(needed - tags)}, losses {losses[:8]}, "
+             f"{len(images)} image panels")
+    if launches["rasterize_zbuffer"] == 0 or launches["zbuffer_keys"] == 0:
+        fail(f"[cli] (a) a kernel of the train path was not launched: {launches}")
+    ep = read_epoch(os.path.join(run_dir, "log", "experiment.log"), "Train", 1)
+    ms = (ep["DataTime"] + ep["StepTime"]) / ep["Steps"] * 1e3
+    share = ep["DataTime"] / (ep["DataTime"] + ep["StepTime"])
+    reader = "native (native/libpmfloader.so)" if native.available() else \
+        f"numpy + PIL (the native library does not load: {native.load_error()})"
+    print(f"[cli] (a) tools/train.py main on files: PMF-ResNet34 {cfg['compute_dtype']}, batch "
+          f"{B}, {TH}x{TW} crop, point Lovász, n_threads {cfg['n_threads']}, {KT} train + {KV} "
+          f"validation scans of {N} points with {KW}x{KH} PNGs, pretrained ResNet34 "
+          f"({len(loaded)} encoder tensors equal to the state_dict's); reader: {reader}")
+    print(f"[cli] (a) epoch 1: {ms:.2f} ms/step over {ep['Steps']:.0f} steps, data-time share "
+          f"{share:.4f} (DT {ep['DataTime']:.3f} s of {ep['DataTime'] + ep['StepTime']:.3f} s); "
+          f"the in-memory Trainer of 6(c): {ref_ms:.2f} ms/step, a gap of "
+          f"{ms - ref_ms:+.2f} ms/step (host-inclusive) on {smi}")
+    print(f"[cli] (a) tree written in {t_write:.1f} s, main() {t_main:.1f} s (2 epochs, 2 "
+          f"validations, image panels at epoch 0); best {best}; {len(tags)} scalar tags, "
+          f"{len(images)} image panels; launches {json.dumps(launches)}")
+    return launches
+
+
+def time_trainer(dev, opts, raw, model, steps: int = 6) -> float:
+    """ms/step of the in-memory Trainer (2 steps an epoch) over `steps`
+    steps after 2 warm-up steps."""
+    from pmf_tpu_torch.train import Trainer
+
+    trainer = Trainer(opts, model, scan_reader(raw, 2 * B), 2 * B, scan_reader(raw, 2 * B), B,
+                      dev, [0.0] + [1.0] * 19)
+    trainer.run(0, "Train")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for epoch in range(1, 1 + steps // 2):
+        run = trainer.run(epoch, "Train")
+    torch.cuda.synchronize()
+    if not np.isfinite(run["Loss"]):
+        fail(f"[nccl] (b) non-finite loss {run}")
+    return (time.perf_counter() - t0) / steps * 1e3
+
+
+def nccl_world1(dev, smi) -> dict:
+    """11(b): a process group of one on NCCL through init_distributed
+    (torchrun's variables with a local MASTER_ADDR and a free port). The
+    small step of parallel/dryrun.py, 2 steps, with the group up equals the
+    same steps without it, each parameter to 1 float32 ulp: every
+    collective runs and is an identity. The step runs in float64 and its
+    parameters are compared as float32: the card's float32 step is not
+    repeatable bit for bit (the backward of the bilinear upsampling adds
+    with atomics in any order; two float32 runs without the group are
+    printed), while float64's reordering stays far under a float32 ulp.
+    Then the full-width Trainer (6(c)'s) without and with the group:
+    ms/step, and the kernels' launches with the group up (returned)."""
+    import torch.distributed as dist
+
+    from pmf_tpu_torch.config import Options
+    from pmf_tpu_torch.data.synthetic import make_inputs
+    from pmf_tpu_torch.models import build_model, random_weights
+    from pmf_tpu_torch.parallel import dryrun, init_distributed, shutdown
+
+    small = lambda dtype: dryrun.train_step(slice(0, dryrun.ROWS), dryrun.ROWS, seed=3,
+                                            dtype=dtype, device=dev, steps=2)["params"]
+    ulps = lambda a, b: max(float((np.abs(a[k].astype(np.float32) - b[k].astype(np.float32)) /
+                                   np.spacing(np.abs(b[k].astype(np.float32)))).max())
+                            for k in b)
+    rel = lambda a, b: max(float(np.linalg.norm(a[k] - b[k]) / max(np.linalg.norm(b[k]), 1e-30))
+                           for k in b)
+    sensor = {"canvas_h": H, "canvas_w": W + 16, "proj_h": H, "proj_w": W, "proj_ht": TH,
+              "proj_wt": TW, "h_pad": 7, "w_pad": 3, "n_points": N}
+    opts = Options(config={"sensor": sensor, "augmentation": {"img_jitter": [0.4, 0.4, 0.4]}},
+                   compute_dtype="bfloat16", batch_size=(B, B), n_epochs=5, warmup_epochs=1)
+    raw = make_inputs(np.random.default_rng(14), 2 * B, N, H, W)
+    torch.manual_seed(0)
+    model = random_weights(build_model(opts), seed=0).to(dev)
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "localhost",
+           "MASTER_PORT": str(dryrun.free_port())}
+    try:
+        alone, again = small(torch.float64), small(torch.float64)
+        alone32, again32 = small(torch.float32), small(torch.float32)
+        ms_alone = time_trainer(dev, opts, raw, model)
+        os.environ.update(env)
+        rank_size = init_distributed(dev)
+        backend = dist.get_backend()
+        grouped, grouped32 = small(torch.float64), small(torch.float32)
+        reset_launches()
+        ms_group = time_trainer(dev, opts, raw, model)
+        launches = read_launches()
+    finally:
+        shutdown()
+        for k in env:
+            os.environ.pop(k, None)
+        torch.backends.cudnn.deterministic = deterministic
+    noise, err = ulps(again, alone), ulps(grouped, alone)
+    noise32, err32 = rel(again32, alone32), rel(grouped32, alone32)
+    if rank_size != (0, 1) or backend != ("nccl" if dev.type == "cuda" else "gloo") or err > 1:
+        fail(f"[nccl] (b) group {rank_size} on {backend}: parameters after 2 steps differ from "
+             f"the run without the group by {err:.3g} float32 ulp (tolerance 1; run to run "
+             f"{noise:.3g})")
+    if launches["rasterize_zbuffer"] == 0 or launches["zbuffer_keys"] == 0:
+        fail(f"[nccl] (b) a kernel of the train path was not launched: {launches}")
+    print(f"[nccl] (b) init_distributed: rank 0 of 1 on {backend}; the small step "
+          f"(dryrun.train_step, {dryrun.ROWS}x{dryrun.TH}x{dryrun.TW}, 2 steps) in float64 with "
+          f"the group: parameters as float32 within {err:.3g} ulp of the run without it (tol "
+          f"1; two runs without: {noise:.3g} ulp); in float32: {err32:.3g} of a parameter's "
+          f"norm from the run without it, two runs without {noise32:.3g}")
+    print(f"[nccl] (b) the full-width Trainer (PMF-ResNet34 bf16, batch {B}, {TH}x{TW}): "
+          f"{ms_alone:.2f} ms/step without the group, {ms_group:.2f} ms/step with it "
+          f"({ms_group - ms_alone:+.2f} ms: the collectives at world 1; 6 steps after 2 "
+          f"warm-up each, host-inclusive) on {smi}; launches {json.dumps(launches)}")
+    return launches
+
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA card")
@@ -1982,7 +2201,8 @@ def main():
     launches = main_path(dev, cfg, batch, raw, smi)
     check_train_view(dev, batch)
     check_train_reference(dev)
-    launches_train = full_width_train(dev, smi)
+    timing: dict = {}
+    launches_train = full_width_train(dev, smi, timing)
     del batch
 
     cfg_e = epmf_cfg()
@@ -2010,9 +2230,12 @@ def main():
     nusc_numbers = nuscenes_phase(dev, smi)
     t_a2d2 = time.perf_counter()
     a2d2_numbers = a2d2_sensat_phase(dev, smi)
+    t_cli = time.perf_counter()
+    launches_cli = cli_train(dev, smi, timing["ms_step"])
+    launches_ddp = nccl_world1(dev, smi)
     print(f"[time] phases 1-7 {t_range - t_run:.1f} s, phase 8 {t_nusc - t_range:.1f} s, phase 9 "
-          f"{t_a2d2 - t_nusc:.1f} s, phase 10 {time.perf_counter() - t_a2d2:.1f} s (the build "
-          "included in phase 2)")
+          f"{t_a2d2 - t_nusc:.1f} s, phase 10 {t_cli - t_a2d2:.1f} s, phase 11 "
+          f"{time.perf_counter() - t_cli:.1f} s (the build included in phase 2)")
     range_keys = ("range_max_abs_err", "range_ms", "range_device_ms", "range_plain_ms",
                   "range_bound_ms", "range_bound_by", "range_library_ms")
     for e in entries:
@@ -2026,6 +2249,8 @@ def main():
         e.update({k: range_numbers[e["name"]].get(k) for k in range_keys})
         e.update(nusc_numbers[e["name"]])
         e.update(a2d2_numbers[e["name"]])
+        e["launches_cli_train"] = launches_cli[e["name"]]
+        e["launches_ddp_train"] = launches_ddp[e["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "launches_train", "launches_epmf",
             "launches_epmf_train", "launches_salsanext", "launches_salsanext_train",
             "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -2035,6 +2260,7 @@ def main():
             "launches_nusc_salsanext",
             "nusc_max_abs_err", "nusc_ms", "nusc_device_ms", "nusc_plain_ms", "nusc_bound_ms",
             "nusc_bound_by", "nusc_library_ms", "launches_a2d2", "launches_a2d2_train",
+            "launches_cli_train", "launches_ddp_train",
             *(p + k for p in ("a2d2_", "a2d2_val_")
               for k in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                         "library_ms")))

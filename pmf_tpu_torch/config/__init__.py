@@ -1,1 +1,1 @@
-from .options import Options, load_options
+from .options import Options, check_run_dir, load_options

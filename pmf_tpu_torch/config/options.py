@@ -16,6 +16,8 @@ class Options:
     # common
     save_path: str = "./experiments"
     seed: int = 1
+    print_frequency: int = 2   # image panels every this many epochs
+    n_threads: int = 8         # the host loader's reader threads
     experiment_id: str = "baseline"
 
     # run control
@@ -40,7 +42,8 @@ class Options:
     compute_dtype: str = "float32"  # float32 | bfloat16 (params stay f32)
     base_channels: int = 32
     img_backbone: str = "resnet34"
-    pretrained_weights: str = ""    # ImageNet ResNet weights: not ported
+    imagenet_pretrained: bool = False
+    pretrained_weights: str = ""    # torchvision-named ResNet state_dict (.pth or .npz)
 
     # loss
     lambda_: float = 1.0
@@ -49,6 +52,11 @@ class Options:
 
     # checkpoints
     checkpoint: str | None = None   # set: resume from <run_dir>/checkpoint
+    pretrained_model: str | None = None
+
+    # parallelism: processes on the data axis (-1: all), the model axis (1)
+    mesh_data: int = -1
+    mesh_model: int = 1
 
     @property
     def run_dir(self) -> str:
@@ -62,6 +70,38 @@ class Options:
 
 
 _RENAMES = {"lambda": "lambda_"}
+
+
+def check_run_dir(run_dir: str, policy: str = "auto") -> None:
+    """What to do when the run directory exists (pmf_tpu's guard):
+
+      auto   — ask when stdin is a terminal, else warn and reuse it;
+      ask    — prompt d(delete) / q(quit);
+      reuse  — go on in the existing directory;
+      delete — remove it;
+      abort  — raise OSError.
+    """
+    import shutil
+    import sys
+
+    if not os.path.exists(run_dir):
+        return
+    if policy == "auto":
+        policy = "ask" if sys.stdin.isatty() else "reuse"
+        if policy == "reuse":
+            print(f"warning: reusing existing run dir {run_dir} "
+                  "(set overwrite_policy: delete/abort to change)", file=sys.stderr)
+            return
+    if policy == "reuse":
+        return
+    if policy == "ask":
+        print(f"file exist: {run_dir}")
+        action = input("Select Action: d(delete) / q(quit): ").lower().strip()
+        policy = "delete" if action == "d" else "abort"
+    if policy == "delete":
+        shutil.rmtree(run_dir)
+        return
+    raise OSError(f"Directory exists: {run_dir}")
 
 
 def load_options(path: str, overrides: dict | None = None) -> Options:

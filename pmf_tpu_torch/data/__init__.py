@@ -1,7 +1,7 @@
 from .jitter import color_jitter, color_jitter_fixed
 from .augment import AugmentConfig, PointAugParams, augment_pointcloud
 from .a2d2 import A2D2_PV
-from .loader import (a2d2_sample_reader, kitti_sample_reader, nuscenes_sample_reader,
+from .loader import (HostLoader, a2d2_sample_reader, kitti_sample_reader, nuscenes_sample_reader,
                      nuscenes_v2_sample_reader, range_sample_reader, sensat_sample_reader)
 from .nuscenes import Nuscenes, NuScenesLite, NuscenesV2
 from .perspective_pipeline import (

@@ -19,6 +19,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..parallel import rand_rows
+
 
 @dataclass(frozen=True)
 class AugmentConfig:
@@ -79,8 +81,9 @@ def _euler_zyx(yaw, pitch, roll):
 
 def draw_point_aug(generator: torch.Generator, batch: int, cfg: AugmentConfig,
                    device=None) -> PointAugParams:
-    """The augmentation of `batch` scans drawn from `generator`."""
-    u = torch.rand((batch, 14), generator=generator, device=device)
+    """The augmentation of `batch` scans drawn from `generator` (this
+    process's rows of the global batch's draws: `parallel.rand_rows`)."""
+    u = rand_rows((batch, 14), generator, device)
 
     def maybe(i, p, lo, hi):
         # u[:, i] < p decides; u[:, i + 1] draws the value, as jax.random.uniform

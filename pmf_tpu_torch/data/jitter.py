@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel import rand_rows
+
 _GRAY = (0.2989, 0.587, 0.114)
 
 
@@ -44,11 +46,12 @@ def color_jitter_fixed(image, img_h, img_w, factors, order):
 
 def jitter_params(generator: torch.Generator, batch: int, strength: tuple,
                   device: torch.device):
-    """(factors [B, 3], order [B, 3]) drawn from `generator`."""
+    """(factors [B, 3], order [B, 3]) drawn from `generator` (this process's
+    rows of the global batch's draws: `parallel.rand_rows`)."""
     lo = torch.tensor([max(0.0, 1.0 - s) for s in strength], device=device)
     hi = torch.tensor([1.0 + s for s in strength], device=device)
-    u = torch.rand((batch, 3), generator=generator, device=device)
-    order = torch.rand((batch, 3), generator=generator, device=device).argsort(dim=1)
+    u = rand_rows((batch, 3), generator, device)
+    order = rand_rows((batch, 3), generator, device).argsort(dim=1)
     return u * (hi - lo) + lo, order
 
 

@@ -34,6 +34,7 @@ from ..ops.projection import perspective_project, perspective_project_cam
 from ..ops.rasterize import rasterize_zbuffer
 from ..ops.scatter import fill_canvas, point_winner_flags, zbuffer_scatter_packed
 from ..ops.zbuffer import zbuffer_keys
+from ..parallel import rand_rows
 from .augment import AugmentConfig, PointAugParams, augment_pointcloud, draw_point_aug
 from .jitter import color_jitter_fixed, jitter_params
 
@@ -155,12 +156,13 @@ def _affine_params(generator: torch.Generator, img_h, img_w, cfg: PVConfig) -> A
     """Draw the train view's parameters from `generator`: flip with
     probability P_HFLIP, theta ~ U(-ROT_DEG, ROT_DEG) degrees, crop offsets
     uniform over the image's slack around the train crop, the ColorJitter
-    if cfg.img_jitter, and the point augmentation if cfg.pcd_aug."""
+    if cfg.img_jitter, and the point augmentation if cfg.pcd_aug; each this
+    process's rows of the global batch's draws (`parallel.rand_rows`)."""
     if generator is None:
         raise ValueError("the train view draws its augmentation from a torch.Generator")
     B, dev = img_h.shape[0], img_h.device
     ch, cw = cfg.train_crop
-    u = torch.rand((B, 4), generator=generator, device=dev)
+    u = rand_rows((B, 4), generator, dev)
     slack_h, slack_w = (img_h - ch).clamp(min=0), (img_w - cw).clamp(min=0)
     top = torch.minimum((u[:, 2] * (slack_h + 1)).long(), slack_h)
     left = torch.minimum((u[:, 3] * (slack_w + 1)).long(), slack_w)

@@ -32,6 +32,7 @@ import torch
 from ..ops.projection import cam_frame_crop_project, yaw_crop_project
 from ..ops.rasterize import rasterize_zbuffer
 from ..ops.zbuffer import zbuffer_keys
+from ..parallel import rand_rows
 from .augment import AugmentConfig, PointAugParams, draw_point_aug
 from .jitter import color_jitter_fixed, jitter_params
 from .perspective_pipeline import (PVConfig, _round_to_int32, augmented_points, fill_scan,
@@ -131,7 +132,8 @@ def v2_view_geometry(points, labels, valid, proj_matrix, image, img_h, img_w, cf
                      train: bool = False, generator: torch.Generator | None = None,
                      aug_override: V2AugParams | None = None, fovs=None, pix=None):
     """Project, box and crop a batch of scans without the fill: the eval
-    view, or the train view with its parameters drawn from `generator` or
+    view, or the train view with its parameters drawn from `generator` (this
+    process's rows of the global batch's draws: `parallel.rand_rows`) or
     given by `aug_override`, in pmf_tpu's float32 arithmetic and order.
 
     points [B, N, 4], labels [B, N], valid [B, N], proj_matrix [B, 3, 4],
@@ -149,7 +151,7 @@ def v2_view_geometry(points, labels, valid, proj_matrix, image, img_h, img_w, cf
     if train and aug is None:
         if generator is None:
             raise ValueError("the train view draws its augmentation from a torch.Generator")
-        u = torch.rand((B, 5), generator=generator, device=dev)
+        u = rand_rows((B, 5), generator, dev)
         jitter = jitter_params(generator, B, cfg.img_jitter, dev) if cfg.img_jitter else None
         points_aug = draw_point_aug(generator, B, cfg.augment, dev) if cfg.pcd_aug else None
         scale = cfg.scale_min + u[:, 0] * (cfg.scale_max - cfg.scale_min)

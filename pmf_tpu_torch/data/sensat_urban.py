@@ -27,6 +27,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..parallel import rand_rows
+
 CLASS_NAMES = {
     -1: "ignore",
     0: "Ground", 1: "High Vegetation", 2: "Buildings", 3: "Walls",
@@ -275,11 +277,12 @@ def draw_sensat_aug(generator: torch.Generator, B: int, Hf: int, Wf: int,
                     cfg: SensatConfig) -> SensatAugParams:
     """The train crop's draws from `generator`: theta ~ U(-π, π), the
     corner uniform over the frame's slack, each flip with probability 0.5,
-    the RGB jitter ~ U(-0.2, 0.2) and the height jitter ~ U(-2, 2)."""
+    the RGB jitter ~ U(-0.2, 0.2) and the height jitter ~ U(-2, 2); this
+    process's rows of the global batch's draws (`parallel.rand_rows`)."""
     dev = generator.device
     A = 1 + cfg.max_resample
-    u = torch.rand((B, A, 5), generator=generator, device=dev)
-    j = torch.rand((B, 2), generator=generator, device=dev)
+    u = rand_rows((B, A, 5), generator, dev)
+    j = rand_rows((B, 2), generator, dev)
     corner = lambda v, slack: torch.clamp((v * (slack + 1)).long(), max=slack)
     return SensatAugParams(
         (u[..., 0] * 2.0 - 1.0) * math.pi, corner(u[..., 1], max(Hf - cfg.img_h, 0)),

@@ -1,7 +1,9 @@
 """Synthetic KITTI-like scans at the eval benchmark's sizes, range-view
 scans, nuScenes-like keyframes, A2D2-like scans with their stored pixels
 and a SensatUrban-like BEV tile, made from a numpy generator in memory (no
-files, no PIL).
+files, no PIL); and on disk, a SemanticKITTI tree (`write_kitti_tree`) and
+a torchvision-named ResNet state_dict (`resnet_state_dict`) for the train
+CLI.
 
 The points, labels and image are drawn as `bench.py: make_inputs` draws
 them (x 2-70 m, y ±20 m, z -2-1 m; a random RGB canvas 16 columns wider
@@ -193,3 +195,73 @@ def make_sensat_frame(rng: np.random.Generator, n_points: int = 2_000_000,
     pc = np.stack([fields[k] for k in ("x", "y", "z", "red", "green", "blue", "class")],
                   1).astype(np.float64)
     return compute_bev_feature(pc, 0.1), fields
+
+
+# SemanticKITTI raw label ids, one for each of the 20 train classes
+KITTI_RAW_IDS = (0, 10, 11, 15, 18, 20, 30, 31, 32, 40, 44, 48, 49, 50, 51, 70, 71, 72, 80, 81)
+
+
+def _write_kitti_scan(seq_dir: str, i: int, rng: np.random.Generator, n_points: int,
+                      h: int, w: int) -> None:
+    from PIL import Image
+
+    pts = np.stack([rng.uniform(2, 70, n_points), rng.uniform(-20, 20, n_points),
+                    rng.uniform(-2, 1, n_points), rng.uniform(0, 1, n_points)],
+                   -1).astype(np.float32)
+    pts.tofile(f"{seq_dir}/velodyne/{i:06d}.bin")
+    sem = np.asarray(KITTI_RAW_IDS, np.int32)[rng.integers(0, 20, n_points)]
+    inst = rng.integers(0, 5, n_points).astype(np.int32)
+    (sem | (inst << 16)).tofile(f"{seq_dir}/labels/{i:06d}.label")
+    Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)).save(
+        f"{seq_dir}/image_2/{i:06d}.png", compress_level=1)
+
+
+def write_kitti_tree(root: str, scans: dict, n_points: int = N_POINTS, h: int = 376,
+                     w: int = 1241, seed: int = 0, workers: int = 8) -> str:
+    """Write a SemanticKITTI `sequences` tree under `root`: sequences 00-10,
+    `scans[seq]` scans in each (none where not given), every scan
+    `n_points` points drawn as `make_inputs` draws them with raw labels of
+    all 20 classes (and instance ids), a random h x w RGB PNG and the
+    pinhole of `make_inputs` as calib.txt's P2 (Tr the identity). Scan i of
+    sequence s comes from np.random.default_rng((seed, s, i)); `workers`
+    threads write. Returns the `sequences` directory."""
+    import concurrent.futures as cf
+    import os
+
+    fx = 720.0
+    p2 = [w / 2, -fx, 0, 0, h / 2, 0, -fx, 0, 1, 0, 0, 0]
+    seqs = os.path.join(root, "sequences")
+    jobs = []
+    with cf.ThreadPoolExecutor(max_workers=workers) as pool:
+        for seq in range(11):
+            seq_dir = os.path.join(seqs, f"{seq:02d}")
+            for sub in ("velodyne", "labels", "image_2"):
+                os.makedirs(os.path.join(seq_dir, sub), exist_ok=True)
+            with open(os.path.join(seq_dir, "calib.txt"), "w") as f:
+                f.write("P2: " + " ".join(str(v) for v in p2) + "\n")
+                f.write("Tr: 1 0 0 0 0 1 0 0 0 0 1 0\n")
+            jobs += [pool.submit(_write_kitti_scan, seq_dir, i,
+                                 np.random.default_rng((seed, seq, i)), n_points, h, w)
+                     for i in range(scans.get(seq, 0))]
+        for job in jobs:
+            job.result()
+    return seqs
+
+
+def resnet_state_dict(seed: int, backbone: str = "resnet34", n_out: int = 1000) -> dict:
+    """A torchvision-named ResNet state_dict, as torchvision's ImageNet
+    weights name theirs (conv1, bn1, layer{s}.{i}..., num_batches_tracked,
+    and the classifier fc.weight [n_out, C], fc.bias), its tensors drawn
+    from `seed` with each layer's scale (`models.random_weights`)."""
+    import torch
+
+    from ..models import random_weights
+    from ..models.resnet import ResNetEncoder
+
+    enc = random_weights(ResNetEncoder(backbone), seed)
+    sd = dict(enc.state_dict())
+    g = torch.Generator().manual_seed(seed + 1)
+    c = enc.feature_channels[-1]
+    sd["fc.weight"] = torch.randn((n_out, c), generator=g) / c ** 0.5
+    sd["fc.bias"] = torch.zeros(n_out)
+    return sd

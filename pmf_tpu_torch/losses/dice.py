@@ -2,7 +2,8 @@
 
 As the reference has them: `dice_loss` returns the soft dice
 *coefficient* (not 1 - dice), its per-class sums run over every pixel of
-the batch, and the classes are then averaged; `explog_dice_loss` is
+the batch (the global batch while a process group is up), and the classes
+are then averaged; `explog_dice_loss` is
 (-log(max(dice, 1e-6)))^gamma with gamma 0.3, which SensatUrban adds to
 both focal terms.
 """
@@ -10,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel import global_sum
 from .focal import one_hot
 
 _EPS = 1e-6
@@ -28,8 +30,9 @@ def dice_loss(probs: torch.Tensor, target: torch.Tensor,
         t = (t * m).to(t.dtype)
         p = p * m[:, None]
     oh = one_hot(t, C).to(p.dtype)
-    intersect = 2.0 * (p * oh).sum(dim=0) + _EPS
-    denom = (p + oh).sum(dim=0) + _EPS
+    inter, total = global_sum(torch.stack([(p * oh).sum(dim=0), (p + oh).sum(dim=0)]))
+    intersect = 2.0 * inter + _EPS
+    denom = total + _EPS
     return (intersect / denom).mean()
 
 

@@ -2,11 +2,14 @@
 
   p_t  = probs[target]
   loss = -(1 - p_t)^gamma · log(max(p_t, 1e-6)) · alpha[target]
-reduced as a mean, or as sum(loss · mask) / sum(mask) with a mask.
+reduced as a mean, or as sum(loss · mask) / sum(mask) with a mask, both
+over the global batch while a process group is up (`parallel.global_sum`).
 """
 from __future__ import annotations
 
 import torch
+
+from ..parallel import global_count, global_sum
 
 
 def one_hot(labels: torch.Tensor, n_classes: int) -> torch.Tensor:
@@ -29,6 +32,7 @@ def focal_softmax_loss(probs: torch.Tensor, target: torch.Tensor,
     a = alpha.to(p.dtype)[t.long()]
     loss = -((1.0 - pt) ** gamma) * log_pt * a
     if mask is None:
-        return loss.mean()
+        return global_sum(loss.sum()) / global_count(loss.numel())
     m = mask.reshape(-1).to(loss.dtype)
-    return (loss * m).sum() / m.sum().clamp(min=1e-12)
+    num, den = global_sum(torch.stack([(loss * m).sum(), m.sum()]))
+    return num / den.clamp(min=1e-12)

@@ -18,12 +18,20 @@ ranking over pixels. The weights are then placed back on the canvas
 (`rasterize_unique`) and the loss is taken there. This holds where the
 winner flags and the canvas use the same depth quantization, which is true
 for N <= 32768 points a scan (see ROADMAP B).
+
+While a process group is up the ranking runs over the global batch, as
+pmf_tpu's sort over a `data`-sharded batch does: every process gathers all
+processes' errors and labels (detached: the weights are), computes the
+weights of the whole batch, and keeps its own columns; the per-class sums
+of error · weight and the foreground counts are then summed over the
+processes (`parallel.global_sum`, the gradient flowing back through it).
 """
 from __future__ import annotations
 
 import torch
 
 from ..ops.scatter import rasterize_unique
+from ..parallel import gather_cols, global_sum, own_cols
 from .focal import one_hot
 
 
@@ -47,9 +55,22 @@ def _jaccard_weights(err: torch.Tensor, fg: torch.Tensor) -> torch.Tensor:
     return torch.empty_like(grad).scatter_(1, order, grad)
 
 
+@torch.no_grad()
+def _global_weights(err: torch.Tensor, y: torch.Tensor, C: int) -> torch.Tensor:
+    """The detached weights of this process's [R, P] errors ranked among all
+    processes' (R = S·C rows of S streams, C classes each); y [P] are the
+    entries' labels, -1 where not counted."""
+    err_all, y_all = gather_cols(err.detach()), gather_cols(y[None])[0]
+    fg_all = one_hot(y_all, C).T.repeat(err.shape[0] // C, 1)
+    return own_cols(_jaccard_weights(err_all, fg_all), err.shape[1])
+
+
 def _present_mean(per_class: torch.Tensor, fg_count: torch.Tensor) -> torch.Tensor:
-    present = (fg_count > 0).float()
-    return (per_class * present).sum() / present.sum().clamp(min=1.0)
+    """The mean over the classes present in the global batch of the [S, C]
+    per-class sums (summed over the processes here), one per stream."""
+    sums = global_sum(torch.cat([per_class, fg_count[None]]))
+    present = (sums[-1] > 0).float()
+    return (sums[:-1] * present).sum(dim=1) / present.sum().clamp(min=1.0)
 
 
 def lovasz_softmax_loss(probs: torch.Tensor, labels: torch.Tensor,
@@ -69,8 +90,8 @@ def lovasz_softmax_loss(probs: torch.Tensor, labels: torch.Tensor,
     okf = ok.float()[:, None]
     fg = one_hot(y, C) * okf                            # [P, C]
     err = ((fg - p).abs() * okf).T                      # [C, P]
-    per_class = (err * _jaccard_weights(err, fg.T)).sum(dim=1)
-    return _present_mean(per_class, fg.sum(dim=0))
+    w = _global_weights(err, torch.where(ok, y, -1), C)
+    return _present_mean((err * w).sum(dim=1)[None], fg.sum(dim=0))[0]
 
 
 def _points_losses(probs_list, labels_img, pt_pix, pt_label, pt_won, ignore):
@@ -87,20 +108,17 @@ def _points_losses(probs_list, labels_img, pt_pix, pt_label, pt_won, ignore):
         idx = pt_pix.clamp(max=HW - 1).long()[..., None].expand(B, N, C)
         err = torch.cat([((fg - p.detach().reshape(B, HW, C).gather(1, idx).float()).abs() * okf)
                          .reshape(B * N, C).T for p in probs_list])
-        w = _jaccard_weights(err, fg.reshape(B * N, C).T.repeat(S, 1))
+        w = _global_weights(err, torch.where(ok, pt_label, -1).reshape(B * N), C)
         w_pts = w.T.reshape(B, N, S * C) * okf
         w_img = rasterize_unique(pt_pix, ok, w_pts, H, W)[0]     # [B, H, W, S·C]
 
     ok_img = labels_img != ignore if ignore is not None else torch.ones_like(labels_img, dtype=torch.bool)
     okimg = ok_img.float()[..., None]
     fg_img = one_hot(labels_img, C) * okimg
-    fg_count = fg.sum(dim=(0, 1))
-    losses = []
-    for s, probs in enumerate(probs_list):
-        err_img = (fg_img - probs.float()).abs() * okimg
-        per_class = (err_img * w_img[..., s * C:(s + 1) * C]).sum(dim=(0, 1, 2))
-        losses.append(_present_mean(per_class, fg_count))
-    return losses
+    per_class = torch.stack([
+        ((fg_img - probs.float()).abs() * okimg * w_img[..., s * C:(s + 1) * C]).sum(dim=(0, 1, 2))
+        for s, probs in enumerate(probs_list)])
+    return list(_present_mean(per_class, fg.sum(dim=(0, 1))))
 
 
 def lovasz_softmax_loss_points(probs, labels_img, pt_pix, pt_label, pt_won,

@@ -8,12 +8,14 @@ two streams (counterpart of `pmf_tpu/losses/perception_aware.py`).
   img_guide  = [importance < 0] · |importance| · [conf_img >= tau]
   loss_pcd   = mean(KL(pcd_log ‖ img) · img_guide)
   loss_img   = mean(KL(img_log ‖ pcd) · pcd_guide)
-The gradient flows through the guides, as in the JAX package.
+The gradient flows through the guides, as in the JAX package. The means
+run over the global batch while a process group is up.
 """
 from __future__ import annotations
 
 import torch
 
+from ..parallel import global_count, global_sum
 from .kl import kl_div
 
 
@@ -33,6 +35,8 @@ def perception_aware_losses(pcd_probs: torch.Tensor, img_probs: torch.Tensor,
     importance = pcd_conf - img_conf
     pcd_guide = (importance > 0) * importance.abs() * (pcd_conf >= tau)
     img_guide = (importance < 0) * importance.abs() * (img_conf >= tau)
-    loss_pcd = (kl_div(pcd_log, img_probs) * img_guide[..., None]).mean()
-    loss_img = (kl_div(img_log, pcd_probs) * pcd_guide[..., None]).mean()
+    kl_pcd = kl_div(pcd_log, img_probs) * img_guide[..., None]
+    kl_img = kl_div(img_log, pcd_probs) * pcd_guide[..., None]
+    sums = global_sum(torch.stack([kl_pcd.sum(), kl_img.sum()]))
+    loss_pcd, loss_img = sums / global_count(kl_pcd.numel())
     return loss_pcd, loss_img, pcd_guide, img_guide

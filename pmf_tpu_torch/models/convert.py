@@ -15,7 +15,8 @@ nested dicts of numpy arrays, build the port model's state_dict.
          .../conv{i}/bias (its Conv is .../conv{i}/conv/Conv_0)
 
 `random_weights` fills a model from a seed instead, for runs without a
-checkpoint.
+checkpoint, and `load_pretrained_resnet` loads torchvision's ImageNet ResNet
+weights into a fusion net's camera encoder.
 """
 from __future__ import annotations
 
@@ -152,3 +153,32 @@ def random_weights(model: nn.Module, seed: int) -> nn.Module:
             sd[k] = torch.randn(v.shape, generator=g) * 0.1
     model.load_state_dict(sd)
     return model.eval()
+
+
+def read_state_dict(path: str) -> dict:
+    """A torch state_dict from a `.pth` (tensors only, or a module) or an
+    `.npz` with the same keys, as tensors."""
+    if path.endswith(".npz"):
+        with np.load(path) as z:
+            return {k: torch.from_numpy(z[k]) for k in z.files}
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    return sd.state_dict() if hasattr(sd, "state_dict") else sd
+
+
+def load_pretrained_resnet(model: nn.Module, path: str, backbone: str = "resnet34",
+                           log=None, encoder: str = "camera_stream_encoder") -> nn.Module:
+    """Load a torchvision-named ResNet state_dict (the ImageNet weights of
+    `backbone`, which names them as in pmf_tpu's signature: conv1, bn1,
+    layer{s}.{i}..., fc) into `model.<encoder>`, as pmf_tpu's
+    load_pretrained_resnet_into does: through `partial_load`, so only
+    tensors whose name and shape match load (the others are logged to `log`
+    and kept; `fc.*` has no counterpart), and torchvision's
+    `num_batches_tracked` counters are left out."""
+    from ..train.checkpoint import partial_load
+
+    sd = {k: v for k, v in read_state_dict(path).items()
+          if not k.endswith("num_batches_tracked")}
+    enc = getattr(model, encoder)
+    target = {k: v for k, v in enc.state_dict().items() if not k.endswith("num_batches_tracked")}
+    enc.load_state_dict(partial_load(target, sd, log), strict=False)
+    return model

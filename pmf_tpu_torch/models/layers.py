@@ -10,6 +10,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import global_count, global_sum, rand_rows
+
 
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:
     """LeakyReLU(0.01) as max(x, 0.01x). Its subgradient at x == 0 is 0.505
@@ -57,7 +59,12 @@ class BatchNorm2d(nn.BatchNorm2d):
     is: μ = E[x] and the biased σ² = E[x²] − E[x]², with the gradient
     flowing through both, and the running statistics move by 0.1 towards
     them (pmf_tpu's _DenseBatchNorm; nn.BatchNorm2d would update the running
-    variance with the unbiased one)."""
+    variance with the unbiased one). While a process group is up the batch
+    is the global one: the per-channel [Σx, Σx²] are summed over the
+    processes (`parallel.global_sum`, the gradient flowing back through the
+    sum), as pmf_tpu's BN over a `data`-sharded batch takes them
+    (nn.SyncBatchNorm would again move the running variance towards the
+    unbiased estimate)."""
 
     def fold(self):
         """The eval coefficients (a, b), float32."""
@@ -71,8 +78,11 @@ class BatchNorm2d(nn.BatchNorm2d):
             a, b = self.fold()
         else:
             xf = x.to(torch.promote_types(x.dtype, torch.float32))
-            mean = xf.mean(dim=(0, 2, 3))
-            var = (xf * xf).mean(dim=(0, 2, 3)) - mean * mean
+            dims = (0, 2, 3)
+            sums = global_sum(torch.stack([xf.sum(dim=dims), (xf * xf).sum(dim=dims)]))
+            n = global_count(xf.numel() // xf.shape[1])
+            mean = sums[0] / n
+            var = sums[1] / n - mean * mean
             with torch.no_grad():
                 m = 1.0 - self.momentum
                 self.running_mean.copy_(m * self.running_mean + self.momentum * mean)
@@ -87,8 +97,10 @@ class Dropout2d(nn.Module):
     """Channel dropout (torch's Dropout2d, pmf_tpu's Dropout2d): in train
     mode each (sample, channel) plane is zeroed with probability p and the
     rest scaled by 1/(1−p). The mask comes from the `generator` the caller
-    passes, never from the global RNG; a train-mode call with p > 0 and no
-    generator raises. p = 0 is the identity."""
+    passes, never from the global RNG (this process's rows of the global
+    batch's mask while a process group is up: `parallel.rand_rows`); a
+    train-mode call with p > 0 and no generator raises. p = 0 is the
+    identity."""
 
     def __init__(self, p: float):
         super().__init__()
@@ -99,8 +111,7 @@ class Dropout2d(nn.Module):
             return x
         if generator is None:
             raise ValueError("train-mode dropout needs a torch.Generator")
-        keep = torch.rand(x.shape[:2] + (1, 1), generator=generator,
-                          device=x.device) >= self.p
+        keep = rand_rows(x.shape[:2] + (1, 1), generator, x.device) >= self.p
         return torch.where(keep, x / (1.0 - self.p), 0.0)
 
 

@@ -4,19 +4,32 @@ of `pmf_tpu/tools/train.py`).
 
 Usage:
   python -m pmf_tpu_torch.tools.train <config.yaml> [--val-only] [--debug]
-      [--device cpu|cuda]
+      [--device cpu|cuda] [--overwrite-policy auto|ask|reuse|delete|abort]
+  torchrun --nproc_per_node=N -m pmf_tpu_torch.tools.train <config.yaml>
 
 The run directory is <save_path>/<dataset>-<net>-<backbone>-bs<bs>-lr<lr>-<id>
-(Options.run_dir): log/experiment.log, and under checkpoint/ the resume
-checkpoint (every epoch) and the best_{Acc,IOU,Recall,last}_model.pth
-snapshots, which `tools/infer_kitti.py --weights` loads (SalsaNext's:
+(Options.run_dir). `--overwrite-policy` (else the config's
+`overwrite_policy`, else auto) says what to do when it exists
+(config.check_run_dir). The main process writes it (train.Recorder):
+settings.json, code/ (the package's sources), log/experiment.log,
+log/scalars.jsonl, log/images/, and under checkpoint/ the resume checkpoint
+(every epoch) and the best_{Acc,IOU,Recall,last}_model.pth snapshots, which
+`tools/infer_kitti.py --weights` loads (SalsaNext's:
 `tools/infer_salsanext.py --weights`; A2D2's `tools/infer_a2d2.py`,
-SensatUrban's `tools/infer_sensat.py`). `checkpoint: <any
-value>` in the config resumes from the run directory's checkpoint. --debug
-runs one iteration per epoch (on nuScenes, from the v1.0-mini DB). A model
-without `pretrained_weights` starts from pmf_tpu's initialization, drawn
-after `torch.manual_seed(seed)`. The run is on the card unless --device cpu is
-given; float32 convolutions there run in float32 (TF32 off).
+SensatUrban's `tools/infer_sensat.py`). `checkpoint: <any value>` in the
+config resumes from the run directory's checkpoint, on every process.
+--debug runs one iteration per epoch (on nuScenes, from the v1.0-mini DB). A
+model starts from pmf_tpu's initialization, drawn after
+`torch.manual_seed(seed)`; a fusion net's camera encoder then takes the
+torchvision-named ImageNet ResNet weights of `pretrained_weights` (.pth or
+.npz) where names and shapes match. The run is on the card unless --device
+cpu is given; float32 convolutions there run in float32 (TF32 off).
+
+Data parallelism: one process a device, launched by torchrun (RANK,
+WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT) or with pmf_tpu's
+variables (COORDINATOR_ADDRESS, PROCESS_COUNT, PROCESS_ID); NCCL on the
+card, gloo with --device cpu. `batch_size` is per device, and each step is
+the global batch's (train.Trainer).
 """
 from __future__ import annotations
 
@@ -29,25 +42,29 @@ import time
 import numpy as np
 import torch
 
-from ..config import load_options
-from ..models import build_model
-from ..train import CheckpointManager, Trainer
-from ..utils import disable_tf32, resolve_device
+from ..config import check_run_dir, load_options
+from ..models import build_model, load_pretrained_resnet
+from ..parallel import barrier, check_mesh, data_parallel, init_distributed, shutdown
+from ..train import CheckpointManager, Recorder, Trainer
+from ..utils import disable_tf32, is_main_process, make_logger, resolve_device
 
 log = logging.getLogger(__name__)
 
 
 class Experiment:
     """The epoch loop: train, validate every val_frequency epochs and at the
-    last, keep the best snapshots, write the resume checkpoint."""
+    last, keep the best snapshots, write the resume checkpoint. The main
+    process writes; the others wait for it at the end of each epoch."""
 
     def __init__(self, opts, trainer: Trainer):
         self.opts, self.trainer = opts, trainer
         self.ckpt = CheckpointManager(os.path.join(opts.run_dir, "checkpoint"))
+        self.main = is_main_process()
         self.start_epoch = 0
         self.best = {"Acc": 0.0, "IOU": 0.0, "Recall": 0.0}
         if opts.checkpoint:
-            epoch = self.ckpt.restore(trainer.model, trainer.optimizer, trainer.mt_sigma)
+            epoch = self.ckpt.restore(trainer.model, trainer.optimizer, trainer.mt_sigma,
+                                      map_location=trainer.device)
             self.start_epoch = epoch + 1
             log.info(f"resumed from epoch {epoch}")
 
@@ -66,10 +83,14 @@ class Experiment:
                 for k in ("Acc", "IOU", "Recall"):
                     if metrics[k] > self.best[k]:
                         self.best[k] = metrics[k]
-                        self.ckpt.save_best(trainer.model, k, trainer.mt_sigma)
+                        if self.main:
+                            self.ckpt.save_best(trainer.model, k, trainer.mt_sigma)
                         log.info(f"new best {k}: {metrics[k]:.4f}")
-                self.ckpt.save_best(trainer.model, "last", trainer.mt_sigma)
-            self.ckpt.save(trainer.model, trainer.optimizer, epoch, trainer.mt_sigma)
+                if self.main:
+                    self.ckpt.save_best(trainer.model, "last", trainer.mt_sigma)
+            if self.main:
+                self.ckpt.save(trainer.model, trainer.optimizer, epoch, trainer.mt_sigma)
+            barrier()
             cost = datetime.timedelta(seconds=int(time.time() - t0))
             log.info(f"epoch {epoch} done; elapsed {cost}; best {self.best}")
         log.info(f"training done; best {self.best}")
@@ -82,6 +103,10 @@ def main(argv=None) -> dict:
     parser.add_argument("--val-only", action="store_true")
     parser.add_argument("--debug", action="store_true")
     parser.add_argument("--device", default=None, help="cuda (default) or cpu")
+    parser.add_argument("--overwrite-policy", default=None,
+                        choices=["auto", "ask", "reuse", "delete", "abort"],
+                        help="what to do when the run directory exists (default: the "
+                             "config's overwrite_policy, else auto)")
     args = parser.parse_args(argv)
     disable_tf32()
     overrides = {}
@@ -91,25 +116,33 @@ def main(argv=None) -> dict:
         overrides["is_debug"] = True
     opts = load_options(args.config, overrides)
     device = resolve_device(args.device)
-    if opts.pretrained_weights:
-        raise NotImplementedError("loading ImageNet ResNet weights is not ported yet")
-
-    log_dir = os.path.join(opts.run_dir, "log")
-    os.makedirs(log_dir, exist_ok=True)
-    logging.basicConfig(format="%(asctime)s %(message)s")
-    handler = logging.FileHandler(os.path.join(log_dir, "experiment.log"))
-    handler.setFormatter(logging.Formatter("%(asctime)s %(message)s"))
-    package_log = logging.getLogger("pmf_tpu_torch")
-    package_log.setLevel(logging.INFO)
-    package_log.addHandler(handler)
-    np.random.seed(opts.seed)
-    torch.manual_seed(opts.seed)
-    model = build_model(opts).to(device)
+    started = not data_parallel()
+    recorder = None
     try:
-        return Experiment(opts, Trainer.from_files(opts, model, device)).run()
+        _, size = init_distributed(device)
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
+        check_mesh(opts.mesh_data, opts.mesh_model, size)
+        if is_main_process():
+            check_run_dir(opts.run_dir, args.overwrite_policy or
+                          opts.config.get("overwrite_policy", "auto"))
+            recorder = Recorder(opts.run_dir, settings_dict={
+                k: v for k, v in vars(opts).items() if k != "config"}, snapshot_code=True)
+        else:
+            make_logger()
+        barrier()
+        np.random.seed(opts.seed)
+        torch.manual_seed(opts.seed)
+        model = build_model(opts)
+        if opts.pretrained_weights and opts.net_type != "SalsaNext":
+            load_pretrained_resnet(model, opts.pretrained_weights, opts.img_backbone, log=log)
+        trainer = Trainer.from_files(opts, model.to(device), device, recorder)
+        return Experiment(opts, trainer).run()
     finally:
-        package_log.removeHandler(handler)
-        handler.close()
+        if recorder is not None:
+            recorder.close()
+        if started:
+            shutdown()
 
 
 if __name__ == "__main__":

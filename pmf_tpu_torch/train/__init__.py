@@ -1,4 +1,5 @@
 from .checkpoint import CheckpointManager, partial_load
+from .recorder import Recorder
 from .optim import AMSGradW, HybridOptimizer, ScheduledOptimizer, adamw
 from .schedules import warmup_cosine_lr
 from .steps import (LossConfig, make_pmf_eval_step, make_pmf_train_step,

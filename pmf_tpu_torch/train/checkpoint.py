@@ -36,10 +36,11 @@ class CheckpointManager:
             state["mt_sigma"] = mt_sigma.detach()
         _atomic_save(state, self.resume_path)
 
-    def restore(self, model, optimizer, mt_sigma=None) -> int:
+    def restore(self, model, optimizer, mt_sigma=None, map_location="cpu") -> int:
         """Load the resume checkpoint into `model`, `optimizer` and
-        `mt_sigma` (in place); returns its epoch."""
-        state = torch.load(self.resume_path, map_location="cpu", weights_only=True)
+        `mt_sigma` (in place), its tensors read onto `map_location`; returns
+        its epoch."""
+        state = torch.load(self.resume_path, map_location=map_location, weights_only=True)
         model.load_state_dict(state["model"])
         optimizer.load_state_dict(state["optimizer"])
         if mt_sigma is not None:

@@ -13,6 +13,12 @@ also carries ExpLogDice over the labelled pixels. SalsaNext, LiDAR only: focal +
 (image domain) and one confusion matrix. The model's parameters, its BN
 statistics and the optimizer's moments are the train state; a train step
 updates them in place.
+
+While a process group is up each process holds its rows of the global
+batch, and the step is the global batch's: the loss terms, the BN
+statistics and the confusion matrices are taken over all processes
+(`parallel/collectives.py`), and the model's gradients are averaged over
+them before the update, which gives each process ∂L/∂θ of the global loss.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ from ..losses import (explog_dice_loss, focal_softmax_loss, lovasz_softmax_loss,
                       perception_aware_losses)
 from ..metrics.iou import confusion_matrix
 from ..ops.reduce import argmax_last
+from ..parallel import average_gradients, global_count, global_sum
 
 
 @dataclass(frozen=True)
@@ -72,17 +79,25 @@ def pmf_losses(lidar_pred, camera_pred, label, cfg: LossConfig, points=None, mt_
     with torch.no_grad():
         lidar_log = torch.log(lidar_pred.clamp(min=1e-8))
         cam_log = torch.log(camera_pred.clamp(min=1e-8))
-        entropy = normalized_entropy(lidar_pred, lidar_log).mean()
-        entropy_cam = normalized_entropy(camera_pred, cam_log).mean()
+        entropy = normalized_entropy(lidar_pred, lidar_log)
+        entropy_cam = normalized_entropy(camera_pred, cam_log)
+        entropy, entropy_cam = global_sum(torch.stack([entropy.sum(), entropy_cam.sum()])) \
+            / global_count(entropy.numel())
     aux = {"loss": total, "loss_focal": loss_foc, "loss_lovasz": loss_lov,
            "loss_focal_cam": loss_foc_cam, "loss_lovasz_cam": loss_lov_cam,
            "loss_perception": loss_per, "entropy": entropy, "entropy_cam": entropy_cam}
     return total, aux
 
 
+def global_confusion(pred, label, nclasses, valid=None):
+    """The [C, C] confusion matrix of the argmax of `pred` over the global
+    batch."""
+    return global_sum(confusion_matrix(argmax_last(pred), label, nclasses, valid))
+
+
 def _confusions(aux, lidar_pred, camera_pred, label, nclasses, valid=None):
-    aux["conf"] = confusion_matrix(argmax_last(lidar_pred), label, nclasses, valid)
-    aux["conf_cam"] = confusion_matrix(argmax_last(camera_pred), label, nclasses, valid)
+    aux["conf"] = global_confusion(lidar_pred, label, nclasses, valid)
+    aux["conf_cam"] = global_confusion(camera_pred, label, nclasses, valid)
     return aux
 
 
@@ -99,6 +114,7 @@ def make_pmf_train_step(model, optimizer, cfg: LossConfig, mt_sigma=None):
         lidar_pred, camera_pred = model(feature[..., 0:5], feature[..., 5:8], generator)
         total, aux = pmf_losses(lidar_pred, camera_pred, label, cfg, points, mt_sigma)
         total.backward()
+        average_gradients(model.parameters())
         optimizer.step()
         with torch.no_grad():
             aux = {k: v.detach() for k, v in aux.items()}
@@ -148,10 +164,11 @@ def make_salsanext_train_step(model, optimizer, cfg: LossConfig):
         pred = model(feature, generator)
         total, aux = salsanext_losses(pred, label, cfg)
         total.backward()
+        average_gradients(model.parameters())
         optimizer.step()
         with torch.no_grad():
             aux = {k: v.detach() for k, v in aux.items()}
-            aux["conf"] = confusion_matrix(argmax_last(pred), label, cfg.nclasses)
+            aux["conf"] = global_confusion(pred, label, cfg.nclasses)
             return aux
 
     return step
@@ -168,7 +185,7 @@ def make_salsanext_eval_step(model, cfg: LossConfig):
         pred = model(feature)
         _, aux = salsanext_losses(pred, label, cfg)
         valid = None if sample_valid is None else sample_valid[:, None, None].expand(label.shape)
-        aux["conf"] = confusion_matrix(argmax_last(pred), label, cfg.nclasses, valid)
+        aux["conf"] = global_confusion(pred, label, cfg.nclasses, valid)
         return aux, pred
 
     return step

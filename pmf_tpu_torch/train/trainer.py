@@ -19,6 +19,20 @@ matrices. Validation runs the eval view and the eval step.
 Per-iteration log lines carry the data and process times, the learning
 rate, the loss, Acc/IoU/Recall (and the image stream's for the fusion nets)
 and the remaining time.
+
+The samples come in batches from `HostLoader`, `opts.n_threads` reader
+threads ahead of the step. While a process group is up each process reads
+its shard of every epoch (`HostLoader`'s `idx[rank::world]`) in batches of
+`batch_size` per device, and the steps take the global batch's losses, BN
+statistics, draws and confusion matrices (`parallel/collectives.py`). Every
+process runs the same count of steps: (n // world) // batch_size a train
+epoch, and ceil(ceil(n / world) / batch_size) validation batches, a process
+whose shard is used up running all-invalid batches, so that the collectives
+line up.
+
+With a `Recorder` (the main process's) each epoch's means go to its scalar
+stream under pmf_tpu's tags, and every `print_frequency` epochs the fusion
+nets (not on nuScenes) write image panels of the last batch's first sample.
 """
 from __future__ import annotations
 
@@ -31,7 +45,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..data import (A2D2_PV, Nuscenes, SemanticKitti, SensatUrban, a2d2_sample_reader,
+from ..data import (A2D2_PV, HostLoader, Nuscenes, SemanticKitti, SensatUrban, a2d2_sample_reader,
                     build_batch, build_range_batch, build_sensat_batch, build_v2_batch,
                     build_v2_batch_pix, kitti_sample_reader, nuscenes_sample_reader,
                     range_config, range_sample_reader, sensat_config, sensat_frame_weights,
@@ -39,6 +53,7 @@ from ..data import (A2D2_PV, Nuscenes, SemanticKitti, SensatUrban, a2d2_sample_r
 from ..data.perspective_pipeline_v2 import A2D2_NAMES
 from ..losses import init_multi_task_params
 from ..metrics import IOUEval
+from ..parallel import broadcast_state, world
 from ..utils import AverageMeter, RemainTime
 from .optim import HybridOptimizer, adamw
 from .schedules import warmup_cosine_lr
@@ -54,6 +69,11 @@ _PIX_KEYS = ("points", "labels", "valid", "rows", "cols", "image", "img_h", "img
 _RANGE_KEYS = ("points", "labels", "valid")
 _SENSAT_KEYS = ("feature_map", "label_map")
 SENSAT_RARE_ALPHA = {4: 2.0, 5: 2.5, 7: 3.0, 12: 10.0, 13: 2.5}
+# the scalar tags of the step's loss terms (pmf_tpu's trainer)
+SCALAR_TAGS = {"loss_focal": "LossFocal", "loss_lovasz": "LossLovasz",
+               "loss_focal_cam": "LossImageFocal", "loss_lovasz_cam": "LossImageLovasz",
+               "loss_perception": "LossPerception", "entropy": "entropy",
+               "entropy_cam": "ImageEntropy"}
 
 
 def kitti_focal_alpha(cls_freq: np.ndarray, learning_ignore: dict) -> np.ndarray:
@@ -98,25 +118,6 @@ def sensat_focal_alpha(nclasses: int) -> np.ndarray:
     return alpha
 
 
-def batches(reader: Callable[[int], dict], n: int, batch_size: int, shuffle: bool,
-            seed: int = 0, epoch: int = 0):
-    """Stacked numpy batches of `reader`'s samples. Train batches are
-    shuffled per epoch (seed + epoch) and a short last batch is dropped; the
-    last validation batch is padded with its last sample, and
-    `batch_valid` [B] marks the real ones."""
-    idx = np.arange(n)
-    if shuffle:
-        np.random.default_rng(seed + epoch).shuffle(idx)
-    n_batches = n // batch_size if shuffle else -(-n // batch_size)
-    for b in range(n_batches):
-        samples = [reader(int(i)) for i in idx[b * batch_size:(b + 1) * batch_size]]
-        n_real = len(samples)
-        samples += [samples[-1]] * (batch_size - n_real)
-        batch = {k: np.stack([s[k] for s in samples]) for k in samples[0]}
-        batch["batch_valid"] = np.arange(batch_size) < n_real
-        yield batch
-
-
 class Trainer:
     """`model` (a PMFNet, EPMFNet or SalsaNext on `device`) trained on
     `n_train` samples of `train_reader` and validated on `n_val` samples of
@@ -124,13 +125,23 @@ class Trainer:
     left out of the IoU). With `use_mtloss` in the config the six loss terms
     of a fusion net are weighted by `mt_sigma`, trained with the lidar
     stream. Random draws (the train view, dropout) come from one generator
-    on the device, seeded by opts.seed."""
+    on the device, seeded by opts.seed (the same on every process, each
+    keeping its rows of the global batch's draws). `recorder` takes the
+    scalars and image panels."""
 
     def __init__(self, opts, model, train_reader: Callable[[int], dict], n_train: int,
                  val_reader: Callable[[int], dict], n_val: int, device: torch.device,
-                 alpha, class_names: dict | None = None):
-        self.opts, self.model, self.device = opts, model, device
-        self.readers = {"Train": (train_reader, n_train), "Validation": (val_reader, n_val)}
+                 alpha, class_names: dict | None = None, recorder=None):
+        self.opts, self.model, self.device, self.recorder = opts, model, device, recorder
+        rank, size = world()
+        self.loaders = {
+            "Train": HostLoader(train_reader, n_train, opts.batch_size[0], shuffle=True,
+                                drop_last=True, seed=opts.seed, num_workers=opts.n_threads,
+                                process_index=rank, process_count=size),
+            "Validation": HostLoader(val_reader, n_val, opts.batch_size[1], shuffle=False,
+                                     drop_last=False, num_workers=opts.n_threads,
+                                     process_index=rank, process_count=size)}
+        broadcast_state(model)
         self.is_range = opts.net_type == "SalsaNext"
         self.is_sensat = opts.dataset == "SensatUrban"
         if self.is_range:
@@ -174,9 +185,10 @@ class Trainer:
         self.metrics_img = IOUEval(opts.nclasses, ignore=ignore)
         self.remain_time = RemainTime(opts.n_epochs)
         self.generator = torch.Generator(device=device).manual_seed(opts.seed)
+        self._panel_batch = None
 
     @classmethod
-    def from_files(cls, opts, model, device: torch.device) -> "Trainer":
+    def from_files(cls, opts, model, device: torch.device, recorder=None) -> "Trainer":
         """The dataset under opts.data_root. SemanticKITTI: sequences 00-07,
         09, 10 to train on, 08 to validate on (SalsaNext reads no images);
         alpha from the config's `cls_freq`, or from the class-map YAML's
@@ -191,7 +203,7 @@ class Trainer:
         frames, indexed by `sensat_frame_weights`, each read as a random
         window drawn from a RandomState seeded by opts.seed, and the val
         frames tiled at proj_h x proj_w; alpha `sensat_focal_alpha`, the
-        class names shifted by one (0: ignore)."""
+        class names shifted by one (0: ignore). `recorder` as in Trainer."""
         is_range = opts.net_type == "SalsaNext"
         if opts.dataset == "SensatUrban":
             trainset = SensatUrban(opts.data_root, "train")
@@ -206,7 +218,7 @@ class Trainer:
                        sensat_sample_reader(trainset, sensat_config(opts, True), weights,
                                             rng=np.random.RandomState(opts.seed)),
                        len(weights), sensat_sample_reader(valset, val_cfg, train=False),
-                       len(valset), device, sensat_focal_alpha(opts.nclasses), names)
+                       len(valset), device, sensat_focal_alpha(opts.nclasses), names, recorder)
         if opts.dataset == "SemanticKitti":
             trainset = SemanticKitti(opts.data_root, TRAIN_SEQUENCES, has_image=not is_range)
             valset = SemanticKitti(opts.data_root, VAL_SEQUENCES, has_image=not is_range)
@@ -242,12 +254,43 @@ class Trainer:
         else:
             reader, cfg = view_reader, view_config(opts)
         return cls(opts, model, reader(trainset, cfg), len(trainset), reader(valset, cfg),
-                   len(valset), device, alpha, trainset.mapped_cls_name)
+                   len(valset), device, alpha, trainset.mapped_cls_name, recorder)
 
     def n_batches(self, mode: str) -> int:
-        bs = self.opts.batch_size[0 if mode == "Train" else 1]
-        n = self.readers[mode][1]
-        return n // bs if mode == "Train" else -(-n // bs)
+        """The steps of a `mode` epoch, the same on every process."""
+        loader = self.loaders[mode]
+        size, bs = loader.process_count, loader.batch_size
+        if mode == "Train":
+            return loader.n_samples // size // bs
+        return -(-(-(-loader.n_samples // size)) // bs)
+
+    def _n_real(self, mode: str, b: int) -> int:
+        """The samples of global batch b that are not padding."""
+        loader = self.loaders[mode]
+        bs = loader.batch_size
+        return sum(min(max(len(range(r, loader.n_samples, loader.process_count)) - b * bs, 0), bs)
+                   for r in range(loader.process_count))
+
+    def batches(self, mode: str, epoch: int):
+        """This process's `n_batches(mode)` batches of the epoch (the train
+        shuffle of `epoch`). Past the end of its shard it gives all-invalid
+        copies of its last batch (`batch_valid` all False)."""
+        loader = self.loaders[mode]
+        loader.set_epoch(epoch)
+        it = iter(loader)
+        last = None
+        try:
+            for _ in range(self.n_batches(mode)):
+                batch = next(it, None)
+                if batch is None:
+                    if last is None:
+                        sample = loader.reader(0)
+                        last = {k: np.stack([v] * loader.batch_size) for k, v in sample.items()}
+                    batch = {**last, "batch_valid": np.zeros(loader.batch_size, bool)}
+                last = batch
+                yield batch
+        finally:
+            it.close()
 
     def view(self, t: dict, train: bool):
         """The train or eval view of a batch of device tensors `t` (by the
@@ -270,6 +313,7 @@ class Trainer:
     def _step(self, batch: dict, train: bool) -> dict:
         feature, label, points = self.view(
             {k: torch.from_numpy(batch[k]).to(self.device) for k in self.view_keys}, train)
+        self._panel_batch = (feature, label)
         extra = () if self.is_range else (points,)
         if train:
             return self.train_step(feature, label, self.generator, *extra)
@@ -294,24 +338,25 @@ class Trainer:
     def run(self, epoch: int, mode: str = "Train") -> dict:
         """One epoch of `mode` ("Train" or "Validation"): returns the mean
         Acc, IOU, Recall of the lidar stream, for the fusion nets the image
-        stream's ImgAcc, ImgIOU, ImgRecall, and the mean of each loss
-        term."""
+        stream's ImgAcc, ImgIOU, ImgRecall, the mean of each loss term, and
+        the epoch's wall time over its Steps split into the seconds spent
+        waiting for the loader's batches (DataTime) and the rest
+        (StepTime). DT in the log lines is that wait alone."""
         train = mode == "Train"
-        reader, n = self.readers[mode]
-        bs = self.opts.batch_size[0 if train else 1]
         self.metrics.reset()
         self.metrics_img.reset()
         loss_meter, aux_meters = AverageMeter(), {}
         total_iter = self.n_batches(mode)
         pending: list = []
         loss = float("nan")
-        t_start = time.time()
-        for i, batch in enumerate(batches(reader, n, bs, train, self.opts.seed, epoch)):
+        data_s, steps = 0.0, 0
+        t_start = t_epoch = time.time()
+        for i, batch in enumerate(self.batches(mode, epoch)):
             t_proc = time.time()
-            pending.append((self._step(batch, train), int(batch["batch_valid"].sum())))
+            pending.append((self._step(batch, train), self._n_real(mode, i)))
             data_t, proc_t = t_proc - t_start, time.time() - t_proc
-            self.remain_time.update(time.time() - t_start, mode)
-            t_start = time.time()
+            data_s, steps = data_s + data_t, steps + 1
+            self.remain_time.update(data_t + proc_t, mode)
             if i % 10 == 0 or i == total_iter - 1:
                 loss = self._drain(pending, loss_meter, aux_meters)
                 rt = datetime.timedelta(seconds=int(
@@ -332,7 +377,9 @@ class Trainer:
                 log.info(f"{line} RT {rt}")
             if self.opts.is_debug:
                 break
+            t_start = time.time()
         self._drain(pending, loss_meter, aux_meters)
+        wall = time.time() - t_epoch
         out = {"Acc": float(self.metrics.getAcc()[0]), "IOU": float(self.metrics.getIoU()[0]),
                "Recall": float(self.metrics.getRecall()[0]), "last": 0.0}
         if not self.is_range:
@@ -340,5 +387,78 @@ class Trainer:
                        ImgIOU=float(self.metrics_img.getIoU()[0]),
                        ImgRecall=float(self.metrics_img.getRecall()[0]))
         out.update(Loss=loss_meter.avg, **{k: m.avg for k, m in aux_meters.items()})
+        if self.recorder is not None:
+            self._record_scalars(mode, epoch, loss_meter.avg, aux_meters)
+            self._log_image_panels(mode, epoch)
+        out.update(DataTime=data_s, StepTime=wall - data_s, Steps=steps)
         log.info(f"{mode} epoch {epoch}: " + " ".join(f"{k} {v:.4f}" for k, v in out.items()))
         return out
+
+    def _record_scalars(self, mode: str, epoch: int, loss: float, aux_meters: dict):
+        """The epoch's means under pmf_tpu's tags: {mode}_{Loss, meanAcc,
+        meanIOU, meanRecall, lr}, each loss term's (SCALAR_TAGS), the
+        per-class {mode}_{c:02d}_{name}_{Acc, Recall, IOU}, and for the
+        fusion nets the image stream's {mode}_Image_mean* and per-class
+        {mode}_{c:02d}_{name}_Image{Acc, Recall, IOU}."""
+        rec = self.recorder
+        streams = [(self.metrics, "", "")]
+        if not self.is_range:
+            streams.append((self.metrics_img, "Image_", "Image"))
+        for metrics, mean_prefix, cls_prefix in streams:
+            (macc, acc), (miou, iou), (mrec, rec_c) = (metrics.getAcc(), metrics.getIoU(),
+                                                     metrics.getRecall())
+            if not mean_prefix:
+                for tag, v in (("Loss", loss), ("meanAcc", macc), ("meanIOU", miou),
+                               ("meanRecall", mrec), ("lr", self.optimizer.lr)):
+                    rec.add_scalar(f"{mode}_{tag}", v, epoch)
+                for k, m in aux_meters.items():
+                    rec.add_scalar(f"{mode}_{SCALAR_TAGS.get(k, k)}", m.avg, epoch)
+            else:
+                for tag, v in (("meanAcc", macc), ("meanIOU", miou), ("meanRecall", mrec)):
+                    rec.add_scalar(f"{mode}_{mean_prefix}{tag}", v, epoch)
+            for c, name in self.class_names.items():
+                c = int(c)
+                if c < len(iou):
+                    for metric, vals in (("Acc", acc), ("Recall", rec_c), ("IOU", iou)):
+                        rec.add_scalar(f"{mode}_{c:02d}_{name}_{cls_prefix}{metric}",
+                                       float(vals[c]), epoch)
+
+    @torch.no_grad()
+    def _log_image_panels(self, mode: str, epoch: int):
+        """pmf_tpu's image panels of the last batch's first sample, every
+        print_frequency epochs, for the fusion nets, not on nuScenes: the
+        lidar channels and the RGB, each class's probability in both streams
+        and its label mask, both streams' entropy and the perception-aware
+        guide weights."""
+        opts = self.opts
+        if (self.is_range or not bool(opts.config.get("log_images", True))
+                or epoch % opts.print_frequency != 0 or opts.dataset == "nuScenes"
+                or self._panel_batch is None):
+            return
+        feature, label = self._panel_batch
+        self.model.eval()
+        lidar, cam = self.model(feature[:1, ..., :5], feature[:1, ..., 5:8])
+        lidar, cam = lidar[0].float().cpu().numpy(), cam[0].float().cpu().numpy()
+        f0 = feature[0].float().cpu().numpy()
+        lab = label[0].cpu().numpy()
+        rec = self.recorder
+        for c in range(f0.shape[-1] - 3):
+            rec.add_image(f"{mode}_PCDFeature_{c}", f0[..., c], epoch)
+        rec.add_image(f"{mode}_RGB", f0[..., -3:], epoch)
+        for c, name in self.class_names.items():
+            c = int(c)
+            if c < lidar.shape[-1]:
+                rec.add_image(f"{mode}_Pred_cls_{c:02d}_{name}", lidar[..., c], epoch)
+                rec.add_image(f"{mode}_RGBPred_cls_{c:02d}_{name}", cam[..., c], epoch)
+                rec.add_image(f"{mode}_Label_cls_{c:02d}_{name}", (lab == c).astype(np.float32),
+                              epoch)
+        nc = lidar.shape[-1]
+        ent_pcd = -(lidar * np.log(np.clip(lidar, 1e-8, None))).sum(-1) / np.log(nc)
+        ent_img = -(cam * np.log(np.clip(cam, 1e-8, None))).sum(-1) / np.log(nc)
+        imp = (1.0 - ent_pcd) - (1.0 - ent_img)
+        rec.add_image(f"{mode}_PredEntropy", ent_pcd, epoch)
+        rec.add_image(f"{mode}_RGBPredEntropy", ent_img, epoch)
+        rec.add_image(f"{mode}_PCDGuideWeight",
+                      (imp > 0) * np.abs(imp) * (1.0 - ent_pcd >= opts.tau), epoch)
+        rec.add_image(f"{mode}_RGBGuideWeight",
+                      (imp < 0) * np.abs(imp) * (1.0 - ent_img >= opts.tau), epoch)

@@ -293,7 +293,7 @@ def test_trainer_data_matches_jax(root, tmp_path, monkeypatch):
     for field in dataclasses.fields(tdata.V2Config):
         assert as_value(getattr(trainer.view_cfg, field.name)) == \
             as_value(getattr(want.v2_cfg, field.name)), field.name
-    assert trainer.readers["Validation"][1] == want._val_len == 3
+    assert trainer.loaders["Validation"].n_samples == want._val_len == 3
     assert trainer.view_keys == PIX_KEYS and not trainer.point_lovasz
     del opts.config["PVconfig"]["canvas_h"], opts.config["PVconfig"]["canvas_w"]
     assert (tdata.v2_config(opts).canvas_h, tdata.v2_config(opts).canvas_w) == (1208, 1920)

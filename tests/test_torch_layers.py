@@ -153,7 +153,9 @@ def test_port_imports_no_jax_flax_or_pmf_tpu():
     assert len(files) > 10
     assert {"augment.py", "range_pipeline.py", "infer_salsanext.py", "nuscenes.py", "infer_nuscenes.py",
             "merge_nuscenes_submission.py", "a2d2.py", "sensat_urban.py", "infer_a2d2.py",
-            "infer_sensat.py", "dice.py"} <= {f.name for f in files}
+            "infer_sensat.py", "dice.py", "native.py", "recorder.py", "logger.py", "mesh.py",
+            "collectives.py", "dryrun.py"} <= {f.name for f in files}
+    assert (REPO / "pmf_tpu_torch" / "parallel" / "__init__.py") in files
     banned = ("jax", "flax", "pmf_tpu", "torchvision")
     bad = [(str(f.relative_to(REPO)), m) for f in files for m in _imports(f)
            if any(m == b or m.startswith(b + ".") for b in banned)]

@@ -614,8 +614,8 @@ def test_trainer_nuscenes_data_matches_jax(nusc, tmp_path, monkeypatch, debug):
     _equal(np.asarray(trainer.loss_cfg.alpha, np.float32), jt.alpha)
     assert list(trainer.metrics.include) == [c for c in range(17) if c not in jt.ignore_class]
     assert trainer.class_names == jt.mapped_cls_name
-    assert trainer.readers["Train"][1] == jt._train_len == 6
-    assert trainer.readers["Validation"][1] == jt._val_len == 12
+    assert trainer.loaders["Train"].n_samples == jt._train_len == 6
+    assert trainer.loaders["Validation"].n_samples == jt._val_len == 12
     assert trainer.view_cfg.projection == "cam"
 
 

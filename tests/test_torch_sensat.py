@@ -460,7 +460,7 @@ def test_trainer_data_matches_jax(sensat_root, tmp_path, monkeypatch):  # noqa: 
     assert want.alpha[[0, 4, 12]].tolist() == [0.0, 2.0, 10.0]
     assert trainer.metrics.ignore == want.ignore_class == [0]
     assert trainer.class_names == want.mapped_cls_name and trainer.class_names[1] == "Ground"
-    assert (trainer.readers["Train"][1], trainer.readers["Validation"][1]) == \
+    assert (trainer.loaders["Train"].n_samples, trainer.loaders["Validation"].n_samples) == \
         (want._train_len, want._val_len) == (2, 12)
     assert trainer.loss_cfg.use_dice and not trainer.point_lovasz
     assert isinstance(trainer.optimizer.optimizers["adamw"], ttrain.AMSGradW)
