@@ -116,7 +116,17 @@ Phases, each of which ends the run with a non-zero exit on failure:
      (b) init_distributed at world 1 on NCCL: the small float32 step of
      parallel/dryrun.py with the group up equal to it without (1 ulp), the
      full-width Trainer's ms/step without and with the group, both kernels
-     launched with it (`launches_ddp_train`).
+     launched with it (`launches_ddp_train`);
+ 12. the spatial split (parallel/spatial.py): two processes share the card
+     over gloo as data 1 x model 2 (`split_phase`): (a) PMF-ResNet34
+     nuScenes eval at 896x1600, batch 4, split against one process
+     (float32 probabilities 1e-4, bf16 argmax >= 99.5 %), each rank's peak
+     memory and ms/forward beside the unsplit run's; (b) the PMF nuScenes
+     train step at 640x960, batch 3 (K2 with return_points, K1's flags),
+     losses 1e-4 in float32 and gradients 1e-3 of their norm in float64 on
+     its first item, each rank's peak memory; (c) parallel/dryrun.py's
+     small step in float64 at model 2 equal to one process; both kernels
+     launched (`launches_split`, the two ranks' counts over (a) and (b)).
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Without a CUDA card the script exits 1 and
@@ -2167,6 +2177,271 @@ def nccl_world1(dev, smi) -> dict:
 
 
 
+SPLIT_MODEL = 2     # phase 12: the ranks a sample's rows are split over
+
+
+def split_view(dev, raw, train: bool):
+    """Phase 12's PMF nuScenes batch of `raw` through K2: the eval view
+    (NBV items, NH x NW) or the train view (NBT items, NTH x NTW, fixed
+    draws) with the points' winner flags (K1): (feature, label, points)."""
+    from pmf_tpu_torch.data import build_batch, pv_config
+
+    cfg = pv_config(nusc_opts("PMFNet"))
+    with torch.no_grad():
+        if not train:
+            f, _, lab = build_batch(*on([a[:NBV] for a in raw], dev), cfg)
+            return f, lab, None
+        aug = fixed_aug(NBT, dev, top=(NCH - NTH) // 3, left=(NCW - NTW) // 3)
+        f, _, lab, pts = build_batch(*on([a[:NBT] for a in raw], dev), cfg, True,
+                                     aug_override=aug, return_points=True)
+    return f, lab, pts
+
+
+def split_eval(model, f, mesh=None, argmax=False, gather=True):
+    """The eval forward of `model` on the batch `f`, under `mesh`'s row split
+    when given (the outputs gathered whole unless not `gather`); with
+    `argmax` the argmax of each output instead of the probabilities."""
+    import contextlib
+
+    from pmf_tpu_torch.ops import argmax_last
+    from pmf_tpu_torch.parallel import spatial
+
+    with mesh.split() if mesh else contextlib.nullcontext(), torch.no_grad():
+        out = model(spatial.split_rows(f[..., :5]), spatial.split_rows(f[..., 5:8]))
+        out = [argmax_last(o) if argmax else o for o in out]
+        return [spatial.gather_rows(o) for o in out] if gather else out
+
+
+def split_train(dev, f, lab, pts, mesh=None, dtype=torch.float32) -> dict:
+    """One PMF nuScenes train step in `dtype` (nusc_model's weights, the
+    hybrid optimizer, point Lovász, dropout from a seeded generator) on the
+    batch, under `mesh`'s row split when given: its loss terms and the
+    averaged gradients and BN running variances after the update (on the
+    host)."""
+    import contextlib
+
+    from pmf_tpu_torch.parallel import spatial
+    from pmf_tpu_torch.train import HybridOptimizer, LossConfig, make_pmf_train_step
+
+    model = nusc_model("PMFNet", dev).to(dtype)
+    model.dtype = dtype
+    opt = HybridOptimizer(model, lambda step: 1e-3, 0.9, 1e-5)
+    step = make_pmf_train_step(model, opt, LossConfig(nclasses=17,
+                                                      alpha=tuple([0.0] + [1.0] * 16)))
+    generator = torch.Generator(device=dev).manual_seed(5)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True     # two unsplit runs then differ by atomics alone
+    try:
+        with mesh.split() if mesh else contextlib.nullcontext():
+            aux = step(spatial.split_rows(f.to(dtype)), spatial.split_rows(lab), generator, pts)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return {"losses": {k: float(v) for k, v in aux.items() if k not in ("conf", "conf_cam")},
+            "grads": {k: p.grad.detach().cpu() for k, p in model.named_parameters()},
+            "var": {k: v.cpu() for k, v in model.state_dict().items() if "running_var" in k}}
+
+
+def first_item(batch):
+    """(feature, label, points) of a batch's first item."""
+    f, lab, pts = batch
+    return f[:1], lab[:1], tuple(p[:1] for p in pts)
+
+
+def peak_gib() -> float:
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def ms_per_call(fn, n: int = 3) -> float:
+    """Host-inclusive ms of one call of `fn` over n calls after one."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def grad_distance(a: dict, b: dict) -> tuple[float, float]:
+    """Gradients `a` from `b`: (‖Δg‖ / ‖g‖ over all parameters together,
+    the largest ‖Δg‖ / (‖g‖ + 1e-4) parameter by parameter, which is under
+    1e-3 when each ‖Δg‖ is within 1e-3 ‖g‖ + 1e-7, phase 6(b)'s tolerance:
+    a conv bias before a train-mode BN has a gradient of zero but for
+    rounding)."""
+    num = sum(float((a[k].double() - v.double()).norm() ** 2) for k, v in b.items())
+    den = sum(float(v.double().norm() ** 2) for v in b.values())
+    each = max(float((a[k].double() - v.double()).norm() / (v.double().norm() + 1e-4))
+               for k, v in b.items())
+    return (num / den) ** 0.5, each
+
+
+def split_job(rank: int, join, device: str = "cuda") -> dict:
+    """Phase 12 in one of the two processes that share the card over gloo.
+    Rank 0 first runs the references alone: the eval forward in float32 and
+    bf16, two float32 train steps at the train batch and one float64 step on
+    its first item unsplit, the small dryrun step in float64; then both join the group as data 1 x model 2 and run the same
+    under the row split, the kernels' launches counted around (a) and (b).
+    Peak memory is read over the forwards alone (the gathers for the
+    comparison come after)."""
+    from pmf_tpu_torch.data.synthetic import make_nuscenes_inputs
+    from pmf_tpu_torch.parallel import dryrun
+    from pmf_tpu_torch.utils import disable_tf32
+
+    disable_tf32()
+    dev = torch.device(device)
+    raw = make_nuscenes_inputs(np.random.default_rng(21), 1, NN, 34720, NCH, NCW)
+    out = {}
+    if rank == 0:
+        f, _, _ = split_view(dev, raw, train=False)
+        model = nusc_model("PMFNet", dev)
+        for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            model.dtype = dtype
+            torch.cuda.reset_peak_memory_stats()
+            out[f"unsplit_ms_{tag}"] = ms_per_call(lambda: split_eval(model, f))
+            out[f"unsplit_peak_{tag}"] = peak_gib()
+            ref = split_eval(model, f, argmax=dtype != torch.float32)
+            out[f"ref_{tag}"] = [o.cpu() for o in ref]
+        del model, f, ref
+        batch = split_view(dev, raw, train=True)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out["ref_train"] = split_train(dev, *batch)
+        torch.cuda.synchronize()
+        out["unsplit_ms_train"] = (time.perf_counter() - t0) * 1e3
+        out["unsplit_peak_train"] = peak_gib()
+        out["ref_train_again"] = split_train(dev, *batch)
+        f, lab, pts = batch
+        out["ref_train_nudged"] = split_train(dev, f * (1 + 2 ** -23), lab, pts)
+        del f
+        out["ref_train64"] = split_train(dev, *first_item(batch), dtype=torch.float64)
+        out["ref_dryrun"] = dryrun.train_step(slice(0, dryrun.ROWS), dryrun.ROWS, seed=3,
+                                              device=dev)
+        del batch
+        torch.cuda.empty_cache()
+    mesh = join()
+    reset_launches()
+    f, _, _ = split_view(dev, raw, train=False)
+    model = nusc_model("PMFNet", dev)
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        model.dtype = dtype
+        torch.cuda.reset_peak_memory_stats()
+        out[f"ms_{tag}"] = ms_per_call(lambda: split_eval(model, f, mesh, gather=False))
+        out[f"peak_{tag}"] = peak_gib()
+        got = split_eval(model, f, mesh, argmax=dtype != torch.float32)
+        if rank == 0:
+            ref = out.pop(f"ref_{tag}")
+            if dtype == torch.float32:
+                out["max_abs_err"] = max(float((g.cpu() - r).abs().max()) for g, r in zip(got, ref))
+            else:
+                out["argmax_agree"] = min(float((g.cpu() == r).double().mean())
+                                          for g, r in zip(got, ref))
+        del got
+    del model, f
+    batch = split_view(dev, raw, train=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    step = split_train(dev, *batch, mesh=mesh)
+    torch.cuda.synchronize()
+    out["ms_train"] = (time.perf_counter() - t0) * 1e3
+    out["peak_train"] = peak_gib()
+    step64 = split_train(dev, *first_item(batch), mesh=mesh, dtype=torch.float64)
+    out["launches"] = read_launches()
+    del batch
+    small = dryrun.train_step(slice(0, dryrun.ROWS), dryrun.ROWS, seed=3, device=dev, mesh=mesh)
+    if rank == 0:
+        ref, again = out.pop("ref_train"), out.pop("ref_train_again")
+        out["loss_rel_err"] = max(abs(step["losses"][k] - v) / max(abs(v), 1e-30)
+                                  for k, v in ref["losses"].items())
+        out["losses"] = step["losses"]
+        out["grad_err"], out["grad_err_each"] = grad_distance(step["grads"], ref["grads"])
+        out["grad_noise"], out["grad_noise_each"] = grad_distance(again["grads"], ref["grads"])
+        nudged = out.pop("ref_train_nudged")
+        out["grad_nudge"], out["grad_nudge_each"] = grad_distance(nudged["grads"], ref["grads"])
+        var_distance = lambda a: max(float((a[k] - v).norm() / v.norm()) for k, v in
+                                     ref["var"].items())
+        out["var_err"], out["var_nudge"] = var_distance(step["var"]), var_distance(nudged["var"])
+        ref64 = out.pop("ref_train64")
+        out["loss_rel_err64"] = max(abs(step64["losses"][k] - v) / max(abs(v), 1e-30)
+                                    for k, v in ref64["losses"].items())
+        out["grad_err64"], out["grad_err64_each"] = grad_distance(step64["grads"], ref64["grads"])
+        out["dryrun"] = dryrun._compare(out.pop("ref_dryrun"), small)
+    return out
+
+
+def split_phase(dev, smi) -> dict:
+    """Phase 12: the spatial split on the card. Two processes share it over
+    gloo (one card cannot hold two NCCL ranks) as data 1 x model 2: (a)
+    PMF-ResNet34 nuScenes eval at full width, the batched view at batch 4
+    through K2, split against one process: float32 (TF32 off) probabilities
+    within 1e-4, bf16 argmax equal on >= 99.5 % of the pixels; each rank's
+    peak memory and ms/forward beside the unsplit run's; (b) the PMF
+    nuScenes train step at its train view (batch 3, 640x960, K2's canvas
+    with return_points, K1's winner flags for the point Lovász), split
+    against one process: in float32 every loss term within 1e-4, peak
+    memory, and the gradients' distance printed beside two unsplit runs'
+    and beside the unsplit step's on features moved by an ulp (float32
+    gradients of PMFNet move by percents with the order of the sums:
+    check_train_reference); in float64, on the batch's first item (the
+    float64 step of 3 items does not fit the card unsplit), every loss term
+    within 1e-4 and each parameter's gradient within 1e-3 of its norm +
+    1e-7 (`grad_distance`); (c) parallel/dryrun.py's small step in float64
+    at model 2 equal to one process (losses 1e-5, BN statistics 1e-5,
+    parameters 1e-5 of their norm, confusion exact). Returns the kernels'
+    launches over (a) and (b), summed over the two ranks."""
+    from pmf_tpu_torch.parallel import dryrun
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    try:
+        ranks = dryrun.Grid(2, SPLIT_MODEL, split_job, (dev.type,), timeout_s=900.0).results()
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"[split] {e}")
+    r0 = ranks[0]
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in r0["launches"]}
+    per_rank = lambda key: " / ".join(f"{r[key]:.2f}" for r in ranks)
+    print(f"[split] (a) PMF-ResNet34 nuScenes eval, batch {NBV}, {NH}x{NW}, split over "
+          f"{SPLIT_MODEL} ranks (gloo, one card): float32 max |dp| {r0['max_abs_err']:.3g} "
+          f"(tol 1e-4), bf16 argmax agreement {r0['argmax_agree']:.6f} (tol 0.995)")
+    for tag in ("f32", "bf16"):
+        print(f"[split] (a) {tag}: peak memory a rank {per_rank('peak_' + tag)} GiB against "
+              f"{r0['unsplit_peak_' + tag]:.2f} GiB unsplit; ms/forward a rank "
+              f"{per_rank('ms_' + tag)} against {r0['unsplit_ms_' + tag]:.2f} unsplit "
+              f"(host-inclusive; the two ranks share the card) on {smi}")
+    print(f"[split] (b) PMF nuScenes train step float32, batch {NBT}, {NTH}x{NTW}, point "
+          f"Lovász: loss terms within {r0['loss_rel_err']:.3g} (tol 1e-4) {r0['losses']}; "
+          f"gradients {r0['grad_err']:.3g} of their norm, parameter by parameter at most "
+          f"{r0['grad_err_each']:.3g} (two unsplit runs: {r0['grad_noise']:.3g} and "
+          f"{r0['grad_noise_each']:.3g}; the unsplit step on the features times 1 + 2^-23: "
+          f"{r0['grad_nudge']:.3g} and {r0['grad_nudge_each']:.3g}); BN running variances "
+          f"within {r0['var_err']:.3g} of their norm (nudged: {r0['var_nudge']:.3g}); float64, "
+          f"first item: loss terms within "
+          f"{r0['loss_rel_err64']:.3g} (tol 1e-4), gradients {r0['grad_err64']:.3g} of their "
+          f"norm, parameter by parameter at most {r0['grad_err64_each']:.3g} (tol 1e-3)")
+    print(f"[split] (b) peak memory a rank {per_rank('peak_train')} GiB against "
+          f"{r0['unsplit_peak_train']:.2f} GiB unsplit; ms/step a rank {per_rank('ms_train')} "
+          f"against {r0['unsplit_ms_train']:.2f} unsplit (first step, host-inclusive) on {smi}")
+    d = r0["dryrun"]
+    print(f"[split] (c) dryrun step float64 at model {SPLIT_MODEL}: losses {d['loss_rel_err']:.3g}, "
+          f"BN statistics {d['stats_abs_err']:.3g}, parameters {d['param_rel_err']:.3g} of "
+          f"their norm, confusion equal {d['conf_equal']}")
+    print(f"[split] launches over (a) and (b), both ranks: {json.dumps(launches)}; phase 12 "
+          f"{time.perf_counter() - t0:.1f} s")
+    if not r0["max_abs_err"] <= 1e-4 or not r0["argmax_agree"] >= 0.995:
+        fail("[split] (a) the split eval forward differs from one process")
+    if not (r0["loss_rel_err"] <= 1e-4 and r0["loss_rel_err64"] <= 1e-4
+            and r0["grad_err64_each"] <= 1e-3):
+        fail("[split] (b) the split train step differs from one process")
+    if not (d["loss_rel_err"] <= dryrun.LOSS_RTOL and d["stats_abs_err"] <= dryrun.STATS_ATOL
+            and d["param_rel_err"] <= dryrun.PARAM_RTOL and d["conf_equal"]):
+        fail("[split] (c) the small step at model 2 differs from one process")
+    if launches["rasterize_zbuffer"] == 0 or launches["zbuffer_keys"] == 0:
+        fail(f"[split] a kernel of the split path was not launched: {launches}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA card")
@@ -2233,9 +2508,12 @@ def main():
     t_cli = time.perf_counter()
     launches_cli = cli_train(dev, smi, timing["ms_step"])
     launches_ddp = nccl_world1(dev, smi)
+    t_split = time.perf_counter()
+    launches_split = split_phase(dev, smi)
     print(f"[time] phases 1-7 {t_range - t_run:.1f} s, phase 8 {t_nusc - t_range:.1f} s, phase 9 "
           f"{t_a2d2 - t_nusc:.1f} s, phase 10 {t_cli - t_a2d2:.1f} s, phase 11 "
-          f"{time.perf_counter() - t_cli:.1f} s (the build included in phase 2)")
+          f"{t_split - t_cli:.1f} s, phase 12 {time.perf_counter() - t_split:.1f} s (the build "
+          "included in phase 2)")
     range_keys = ("range_max_abs_err", "range_ms", "range_device_ms", "range_plain_ms",
                   "range_bound_ms", "range_bound_by", "range_library_ms")
     for e in entries:
@@ -2251,6 +2529,7 @@ def main():
         e.update(a2d2_numbers[e["name"]])
         e["launches_cli_train"] = launches_cli[e["name"]]
         e["launches_ddp_train"] = launches_ddp[e["name"]]
+        e["launches_split"] = launches_split[e["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "launches_train", "launches_epmf",
             "launches_epmf_train", "launches_salsanext", "launches_salsanext_train",
             "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -2260,7 +2539,7 @@ def main():
             "launches_nusc_salsanext",
             "nusc_max_abs_err", "nusc_ms", "nusc_device_ms", "nusc_plain_ms", "nusc_bound_ms",
             "nusc_bound_by", "nusc_library_ms", "launches_a2d2", "launches_a2d2_train",
-            "launches_cli_train", "launches_ddp_train",
+            "launches_cli_train", "launches_ddp_train", "launches_split",
             *(p + k for p in ("a2d2_", "a2d2_val_")
               for k in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                         "library_ms")))

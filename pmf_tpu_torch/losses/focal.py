@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from ..parallel import global_count, global_sum
+from ..parallel import global_sum, global_sum_count
 
 
 def one_hot(labels: torch.Tensor, n_classes: int) -> torch.Tensor:
@@ -32,7 +32,8 @@ def focal_softmax_loss(probs: torch.Tensor, target: torch.Tensor,
     a = alpha.to(p.dtype)[t.long()]
     loss = -((1.0 - pt) ** gamma) * log_pt * a
     if mask is None:
-        return global_sum(loss.sum()) / global_count(loss.numel())
+        total, n = global_sum_count(loss.sum(), loss.numel())
+        return total / n
     m = mask.reshape(-1).to(loss.dtype)
     num, den = global_sum(torch.stack([(loss * m).sum(), m.sum()]))
     return num / den.clamp(min=1e-12)

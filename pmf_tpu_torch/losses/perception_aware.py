@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from ..parallel import global_count, global_sum
+from ..parallel import global_sum_count
 from .kl import kl_div
 
 
@@ -37,6 +37,13 @@ def perception_aware_losses(pcd_probs: torch.Tensor, img_probs: torch.Tensor,
     img_guide = (importance < 0) * importance.abs() * (img_conf >= tau)
     kl_pcd = kl_div(pcd_log, img_probs) * img_guide[..., None]
     kl_img = kl_div(img_log, pcd_probs) * pcd_guide[..., None]
-    sums = global_sum(torch.stack([kl_pcd.sum(), kl_img.sum()]))
-    loss_pcd, loss_img = sums / global_count(kl_pcd.numel())
+    sums, n = global_sum_count(torch.stack([kl_pcd.sum(), kl_img.sum()]), kl_pcd.numel())
+    loss_pcd, loss_img = sums / n
     return loss_pcd, loss_img, pcd_guide, img_guide
+
+
+def perception_aware_loss(pcd_probs: torch.Tensor, img_probs: torch.Tensor, tau: float = 0.7):
+    """(loss_pcd + loss_img, pcd_guide, img_guide): the bidirectional loss as
+    one number, with the guide weights (pmf_tpu's trainer logs them)."""
+    loss_pcd, loss_img, pcd_guide, img_guide = perception_aware_losses(pcd_probs, img_probs, tau)
+    return loss_pcd + loss_img, pcd_guide, img_guide

@@ -29,6 +29,20 @@ def confusion_matrix(pred: torch.Tensor, target: torch.Tensor, n_classes: int,
     return counts.reshape(n_classes, n_classes).float()
 
 
+def iou_from_confusion(conf, ignore=()):
+    """(mean IoU, per-class IoU) of a [C, C] confusion matrix, the `ignore`
+    rows and columns zeroed, the mean over the other classes."""
+    conf = np.asarray(conf, dtype=np.float64).copy()
+    ignore = list(ignore)
+    include = [c for c in range(conf.shape[0]) if c not in ignore]
+    if ignore:
+        conf[ignore, :] = 0
+        conf[:, ignore] = 0
+    tp = np.diag(conf)
+    iou = tp / (tp + (conf.sum(axis=1) - tp) + (conf.sum(axis=0) - tp) + 1e-15)
+    return iou[include].mean(), iou
+
+
 class IOUEval:
     """Stateful accumulator with the reference IOUEval API; the confusion
     matrix accumulates in float64 on the host."""

@@ -1,3 +1,4 @@
+from .modules import ConvUpSample, CSAttention
 from .epmf import EPMFNet, RGBDecoderV2, SalsaNextFusionV2, SparseResContextBlock, SparseVariantConv
 from .convert import (load_pretrained_resnet, load_weights, random_weights, read_flax_npz,
                       state_dict_from_flax)

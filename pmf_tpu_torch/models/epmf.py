@@ -25,6 +25,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.resize import PixelShuffle
+from ..parallel import spatial
 from .layers import BatchNorm2d, Conv2d, leaky_relu
 from .pmf import ASPP, LeakyReLU, ResidualBasedFusionBlock, RGBDecoder
 from .resnet import ResNetEncoder
@@ -33,11 +35,16 @@ from .salsanext import ResBlock, UpBlock
 
 def _dilate_mask(mask, kernel: int, stride: int, dilation: int, padding: int):
     """The mask [N, 1, H, W] after the conv's window: zero-padded by the
-    conv's padding, then max-pooled with its kernel, stride and dilation.
+    conv's padding, then max-pooled with its kernel, stride and dilation
+    (under a row split the padding rows are zeros fetched with the window).
     No gradient flows through it (it starts at a comparison)."""
     with torch.no_grad():
-        m = F.pad(mask, (padding,) * 4)
-        return F.max_pool2d(m, kernel, stride=stride, dilation=dilation)
+        if spatial.active() is None:
+            m = F.pad(mask, (padding,) * 4)
+            return F.max_pool2d(m, kernel, stride=stride, dilation=dilation)
+        pool = lambda block: F.max_pool2d(F.pad(block, (padding, padding, 0, 0)), kernel,
+                                          stride=stride, dilation=dilation)
+        return spatial.window_op(mask, kernel, stride, dilation, padding, pool)
 
 
 class SparseVariantConv(nn.Module):
@@ -87,7 +94,7 @@ def extra_upsample(cin: int, cout: int) -> nn.Sequential:
     """conv 3×3 → LeakyReLU → BN → PixelShuffle(2), under the reference's
     nn.Sequential indices."""
     return nn.Sequential(Conv2d(cin, cout, 3, padding=1), LeakyReLU(), BatchNorm2d(cout),
-                         nn.PixelShuffle(2))
+                         PixelShuffle(2))
 
 
 class SalsaNextFusionV2(nn.Module):
@@ -182,7 +189,7 @@ class EPMFNet(nn.Module):
                                               dropout_rate=dropout_rate)
 
     def forward(self, pcd_feature, img_feature, generator=None):
-        if pcd_feature.shape[1] % 32 or pcd_feature.shape[2] % 32:
+        if spatial.height(pcd_feature, 1) % 32 or pcd_feature.shape[2] % 32:
             raise ValueError(f"EPMFNet needs sizes divisible by 32: {tuple(pcd_feature.shape)}")
         pcd = pcd_feature.permute(0, 3, 1, 2).to(self.dtype)
         img = img_feature.permute(0, 3, 1, 2).to(self.dtype)

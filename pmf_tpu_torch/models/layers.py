@@ -10,7 +10,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..parallel import global_count, global_sum, rand_rows
+from ..parallel import global_sum_count, rand_rows, spatial
 
 
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:
@@ -48,6 +48,21 @@ class Conv2d(nn.Conv2d):
         bias = None if self.bias is None else self.bias.to(x.dtype)
         return self._conv_forward(x, self.weight.to(x.dtype), bias)
 
+    def _conv_forward(self, x, weight, bias):
+        """The convolution; while a row split is in force, this rank's output
+        rows from the input rows they read (`parallel.spatial`). A conv that
+        maps each row to itself (1×1, stride 1, no row padding) needs no
+        other rows, and takes replicated inputs too (ASPP's pooled branch)."""
+        if spatial.active() is None:
+            return super()._conv_forward(x, weight, bias)
+        (k, _), (s, _), (d, _), (p, pw) = (self.kernel_size, self.stride, self.dilation,
+                                           self.padding)
+        if k == s == 1 and p == 0 and x.shape[2] > 0:
+            return super()._conv_forward(x, weight, bias)
+        conv = lambda block: F.conv2d(block, weight, bias, self.stride, (0, pw), self.dilation,
+                                      self.groups)
+        return spatial.window_op(x, k, s, d, p, conv)
+
 
 class BatchNorm2d(nn.BatchNorm2d):
     """BatchNorm2d with torch's hyperparameters (eps 1e-5, momentum 0.1),
@@ -61,8 +76,9 @@ class BatchNorm2d(nn.BatchNorm2d):
     them (pmf_tpu's _DenseBatchNorm; nn.BatchNorm2d would update the running
     variance with the unbiased one). While a process group is up the batch
     is the global one: the per-channel [Σx, Σx²] are summed over the
-    processes (`parallel.global_sum`, the gradient flowing back through the
-    sum), as pmf_tpu's BN over a `data`-sharded batch takes them
+    processes (`parallel.global_sum_count`, the gradient flowing back
+    through the sum; under a row split the element counts too, since the
+    blocks can be uneven), as pmf_tpu's BN over a sharded batch takes them
     (nn.SyncBatchNorm would again move the running variance towards the
     unbiased estimate)."""
 
@@ -79,8 +95,8 @@ class BatchNorm2d(nn.BatchNorm2d):
         else:
             xf = x.to(torch.promote_types(x.dtype, torch.float32))
             dims = (0, 2, 3)
-            sums = global_sum(torch.stack([xf.sum(dim=dims), (xf * xf).sum(dim=dims)]))
-            n = global_count(xf.numel() // xf.shape[1])
+            sums, n = global_sum_count(torch.stack([xf.sum(dim=dims), (xf * xf).sum(dim=dims)]),
+                                       xf.numel() // xf.shape[1])
             mean = sums[0] / n
             var = sums[1] / n - mean * mean
             with torch.no_grad():
@@ -98,7 +114,8 @@ class Dropout2d(nn.Module):
     mode each (sample, channel) plane is zeroed with probability p and the
     rest scaled by 1/(1−p). The mask comes from the `generator` the caller
     passes, never from the global RNG (this process's rows of the global
-    batch's mask while a process group is up: `parallel.rand_rows`); a
+    batch's mask while a process group is up, the same on every rank of a
+    model group: `parallel.rand_rows`); a
     train-mode call with p > 0 and no generator raises. p = 0 is the
     identity."""
 
@@ -130,10 +147,18 @@ def conv_bn(x, conv: nn.Conv2d, bn: BatchNorm2d, act=None):
 
 
 def avg_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
-    """AvgPool2d(3, stride 2, padding 1, count_include_pad=True)."""
-    return F.avg_pool2d(x, 3, stride=2, padding=1, count_include_pad=True)
+    """AvgPool2d(3, stride 2, padding 1, count_include_pad=True); under a row
+    split the padding rows are zeros fetched with the window."""
+    if spatial.active() is None:
+        return F.avg_pool2d(x, 3, stride=2, padding=1, count_include_pad=True)
+    return spatial.window_op(x, 3, 2, 1, 1, lambda block: F.avg_pool2d(
+        block, 3, stride=2, padding=(0, 1), count_include_pad=True))
 
 
 def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
-    """MaxPool2d(3, stride 2, padding 1), the ResNet stem pool."""
-    return F.max_pool2d(x, 3, stride=2, padding=1)
+    """MaxPool2d(3, stride 2, padding 1), the ResNet stem pool; under a row
+    split the padding rows are -inf, which no window picks."""
+    if spatial.active() is None:
+        return F.max_pool2d(x, 3, stride=2, padding=1)
+    return spatial.window_op(x, 3, 2, 1, 1, lambda block: F.max_pool2d(
+        block, 3, stride=2, padding=(0, 1)), fill=float("-inf"))

@@ -13,6 +13,7 @@ import torch
 from torch import nn
 
 from ..ops.resize import upsample_bilinear
+from ..parallel import spatial
 from .layers import BatchNorm2d, Conv2d, conv_bn, leaky_relu
 from .resnet import ResNetEncoder
 from .salsanext import ResBlock, ResContextBlock, SalsaNext, UpBlock
@@ -48,7 +49,8 @@ class ResidualBasedFusionBlock(nn.Module):
 
 class ASPP(nn.Module):
     """Atrous spatial pyramid pooling: global-pool branch, 1×1, and 3×3
-    dilated 6/12/18, merged by a 1×1 conv."""
+    dilated 6/12/18, merged by a 1×1 conv. Under a row split the global pool
+    is the model group's (`spatial.spatial_mean`)."""
 
     def __init__(self, cin: int, depth: int):
         super().__init__()
@@ -60,7 +62,7 @@ class ASPP(nn.Module):
         self.conv_1x1_output = Conv2d(depth * 5, depth, 1)
 
     def forward(self, x):
-        gp = self.conv(x.mean(dim=(2, 3), keepdim=True)).expand(-1, -1, *x.shape[2:])
+        gp = self.conv(spatial.spatial_mean(x)).expand(-1, -1, *x.shape[2:])
         cat = torch.cat([gp, self.atrous_block1(x), self.atrous_block6(x),
                          self.atrous_block12(x), self.atrous_block18(x)], 1)
         return self.conv_1x1_output(cat)

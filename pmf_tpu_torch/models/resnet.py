@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import spatial
 from .layers import BatchNorm2d, Conv2d, Dropout2d, conv_bn, max_pool_3x3_s2
 
 STAGES = {
@@ -93,7 +94,7 @@ class ResNetEncoder(nn.Module):
         self.dropout = Dropout2d(dropout_rate)
 
     def forward(self, x, generator=None):
-        if x.shape[2] % 16 or x.shape[3] % 16:
+        if spatial.height(x) % 16 or x.shape[3] % 16:
             raise ValueError(f"invalid input size: {tuple(x.shape)}")
         out = max_pool_3x3_s2(conv_bn(x, self.conv1, self.bn1, F.relu))
         feats = []

@@ -10,13 +10,19 @@ samples of the global batch, and makes the same step explicit: the
 reductions are the collectives of `parallel/collectives.py`, over NCCL on
 the card and gloo on the CPU.
 
-`mesh_model` > 1, the spatial split of the image rows over a `model` axis
-(`pmf_tpu/parallel/mesh.py:61-63`), is not ported (ROADMAP A17b).
+`make_mesh` lays the processes out as pmf_tpu's (`data`, `model`) device
+mesh: rank i at data index i // M and model index i % M. The M ranks of a
+model group hold the same samples (pmf_tpu's `shard_batch` replicates the
+batch over `model`); while the mesh's `RowSplit` (`parallel/spatial.py`) is
+in force they split those samples' image rows between them, the
+counterpart of `spatial_batch_sharding`.
 """
 from __future__ import annotations
 
 import datetime
 import os
+from contextvars import ContextVar
+from dataclasses import dataclass
 
 import torch
 import torch.distributed as dist
@@ -68,15 +74,66 @@ def init_distributed(device: torch.device | str = "cuda",
 
 
 def check_mesh(mesh_data: int, mesh_model: int, world_size: int) -> None:
-    """The config's mesh against the processes that run it: `mesh_data` is
-    -1 (every process) or the world size, and `mesh_model` is 1."""
-    if mesh_model > 1:
-        raise NotImplementedError(
-            f"mesh_model={mesh_model}: the spatial split of the image rows over a model axis "
-            "is not ported (ROADMAP A17b); use mesh_model: 1")
-    if mesh_data not in (-1, world_size):
-        raise ValueError(f"mesh_data={mesh_data} but {world_size} processes run: set it to -1 "
-                         "or launch that many processes")
+    """The config's mesh against the processes that run it: `mesh_model` = M
+    divides the world size, and `mesh_data` is -1 (the rest) or world / M."""
+    if mesh_model < 1 or world_size % mesh_model:
+        raise ValueError(f"mesh_model={mesh_model} does not divide the {world_size} processes")
+    if mesh_data not in (-1, world_size // mesh_model):
+        raise ValueError(f"mesh_data={mesh_data} but {world_size} processes run at "
+                         f"mesh_model={mesh_model}: set it to -1 or {world_size // mesh_model}")
+
+
+@dataclass(frozen=True)
+class Mesh:
+    """The processes as a (data, model) grid: this rank's place in it and the
+    process group of its model axis (None when `model` is 1)."""
+    data: int
+    model: int
+    rank: int
+    model_group: object = None
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.model
+
+    @property
+    def model_index(self) -> int:
+        return self.rank % self.model
+
+    def split(self):
+        """A fresh `spatial.RowSplit` over this rank's model group, to put in
+        force with `with` around one step."""
+        from .spatial import RowSplit
+
+        return RowSplit(self)
+
+
+def make_mesh(data: int = -1, model: int = 1) -> Mesh:
+    """The (data, model) grid of the process group (counterpart of
+    `pmf_tpu/parallel/mesh.py: make_mesh`); data = -1 takes world / model.
+    Every process must call it, in the same order as its other group calls:
+    it creates one process group a model row."""
+    rank, size = world()
+    check_mesh(data, model, size)
+    groups = [None] * (size // model)
+    if model > 1:
+        groups = [dist.new_group(list(range(d * model, (d + 1) * model)))
+                  for d in range(size // model)]
+    return Mesh(size // model, model, rank, groups[rank // model])
+
+
+# the mesh whose row split is in force (parallel/spatial.py: RowSplit)
+_ACTIVE: ContextVar = ContextVar("pmf_tpu_torch_row_split", default=None)
+
+
+def data_world() -> tuple[int, int]:
+    """(data index, data size): the rank's row of the global batch and the
+    count of rows while a row split is in force, else `world()`. The ranks
+    of a model group draw as one."""
+    split = _ACTIVE.get()
+    if split is None:
+        return world()
+    return split.mesh.data_index, split.mesh.data
 
 
 def shutdown() -> None:

@@ -6,6 +6,7 @@ Usage:
   python -m pmf_tpu_torch.tools.train <config.yaml> [--val-only] [--debug]
       [--device cpu|cuda] [--overwrite-policy auto|ask|reuse|delete|abort]
   torchrun --nproc_per_node=N -m pmf_tpu_torch.tools.train <config.yaml>
+  torchrun --nproc_per_node=4 -m pmf_tpu_torch.tools.train <config.yaml>  # mesh_model: 2
 
 The run directory is <save_path>/<dataset>-<net>-<backbone>-bs<bs>-lr<lr>-<id>
 (Options.run_dir). `--overwrite-policy` (else the config's
@@ -29,7 +30,11 @@ Data parallelism: one process a device, launched by torchrun (RANK,
 WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT) or with pmf_tpu's
 variables (COORDINATOR_ADDRESS, PROCESS_COUNT, PROCESS_ID); NCCL on the
 card, gloo with --device cpu. `batch_size` is per device, and each step is
-the global batch's (train.Trainer).
+the global batch's (train.Trainer). `mesh_model: M` (M dividing the process
+count, `mesh_data` -1 or processes / M) lays the processes out as a (data,
+model) grid: each sample's image rows are split over the M ranks of its
+model group (parallel/spatial.py), and the global batch is batch_size ×
+processes / M.
 """
 from __future__ import annotations
 
@@ -44,7 +49,7 @@ import torch
 
 from ..config import check_run_dir, load_options
 from ..models import build_model, load_pretrained_resnet
-from ..parallel import barrier, check_mesh, data_parallel, init_distributed, shutdown
+from ..parallel import barrier, data_parallel, init_distributed, make_mesh, shutdown
 from ..train import CheckpointManager, Recorder, Trainer
 from ..utils import disable_tf32, is_main_process, make_logger, resolve_device
 
@@ -119,10 +124,10 @@ def main(argv=None) -> dict:
     started = not data_parallel()
     recorder = None
     try:
-        _, size = init_distributed(device)
+        init_distributed(device)
         if device.type == "cuda":
             device = torch.device("cuda", torch.cuda.current_device())
-        check_mesh(opts.mesh_data, opts.mesh_model, size)
+        mesh = make_mesh(opts.mesh_data, opts.mesh_model)
         if is_main_process():
             check_run_dir(opts.run_dir, args.overwrite_policy or
                           opts.config.get("overwrite_policy", "auto"))
@@ -136,7 +141,7 @@ def main(argv=None) -> dict:
         model = build_model(opts)
         if opts.pretrained_weights and opts.net_type != "SalsaNext":
             load_pretrained_resnet(model, opts.pretrained_weights, opts.img_backbone, log=log)
-        trainer = Trainer.from_files(opts, model.to(device), device, recorder)
+        trainer = Trainer.from_files(opts, model.to(device), device, recorder, mesh)
         return Experiment(opts, trainer).run()
     finally:
         if recorder is not None:

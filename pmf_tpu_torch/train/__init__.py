@@ -1,7 +1,7 @@
 from .checkpoint import CheckpointManager, partial_load
 from .recorder import Recorder
 from .optim import AMSGradW, HybridOptimizer, ScheduledOptimizer, adamw
-from .schedules import warmup_cosine_lr
+from .schedules import clip_lr, warmup_cosine_lr, warmup_exp_lr, warmup_multistep_lr
 from .steps import (LossConfig, make_pmf_eval_step, make_pmf_train_step,
                     make_salsanext_eval_step, make_salsanext_train_step, pmf_losses,
                     salsanext_losses)

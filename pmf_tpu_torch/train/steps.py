@@ -31,7 +31,7 @@ from ..losses import (explog_dice_loss, focal_softmax_loss, lovasz_softmax_loss,
                       perception_aware_losses)
 from ..metrics.iou import confusion_matrix
 from ..ops.reduce import argmax_last
-from ..parallel import average_gradients, global_count, global_sum
+from ..parallel import average_gradients, global_sum, global_sum_count
 
 
 @dataclass(frozen=True)
@@ -81,8 +81,9 @@ def pmf_losses(lidar_pred, camera_pred, label, cfg: LossConfig, points=None, mt_
         cam_log = torch.log(camera_pred.clamp(min=1e-8))
         entropy = normalized_entropy(lidar_pred, lidar_log)
         entropy_cam = normalized_entropy(camera_pred, cam_log)
-        entropy, entropy_cam = global_sum(torch.stack([entropy.sum(), entropy_cam.sum()])) \
-            / global_count(entropy.numel())
+        sums, n = global_sum_count(torch.stack([entropy.sum(), entropy_cam.sum()]),
+                                   entropy.numel())
+        entropy, entropy_cam = sums / n
     aux = {"loss": total, "loss_focal": loss_foc, "loss_lovasz": loss_lov,
            "loss_focal_cam": loss_foc_cam, "loss_lovasz_cam": loss_lov_cam,
            "loss_perception": loss_per, "entropy": entropy, "entropy_cam": entropy_cam}

@@ -30,12 +30,19 @@ epoch, and ceil(ceil(n / world) / batch_size) validation batches, a process
 whose shard is used up running all-invalid batches, so that the collectives
 line up.
 
+With a (data, model) `mesh` of model size M > 1 (`mesh_model`), the M ranks
+of a model group read the same shard (the data index's) and build the same
+view, then each runs the step on its block of the view's rows
+(`parallel.spatial`): the global batch is batch_size × world / M samples,
+each split over a model group's M ranks.
+
 With a `Recorder` (the main process's) each epoch's means go to its scalar
 stream under pmf_tpu's tags, and every `print_frequency` epochs the fusion
 nets (not on nuScenes) write image panels of the last batch's first sample.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import logging
 import os
@@ -53,7 +60,7 @@ from ..data import (A2D2_PV, HostLoader, Nuscenes, SemanticKitti, SensatUrban, a
 from ..data.perspective_pipeline_v2 import A2D2_NAMES
 from ..losses import init_multi_task_params
 from ..metrics import IOUEval
-from ..parallel import broadcast_state, world
+from ..parallel import broadcast_state, spatial, world
 from ..utils import AverageMeter, RemainTime
 from .optim import HybridOptimizer, adamw
 from .schedules import warmup_cosine_lr
@@ -127,13 +134,15 @@ class Trainer:
     stream. Random draws (the train view, dropout) come from one generator
     on the device, seeded by opts.seed (the same on every process, each
     keeping its rows of the global batch's draws). `recorder` takes the
-    scalars and image panels."""
+    scalars and image panels. A `mesh` (`parallel.make_mesh`) of model size
+    > 1 splits each sample's rows over its model group."""
 
     def __init__(self, opts, model, train_reader: Callable[[int], dict], n_train: int,
                  val_reader: Callable[[int], dict], n_val: int, device: torch.device,
-                 alpha, class_names: dict | None = None, recorder=None):
+                 alpha, class_names: dict | None = None, recorder=None, mesh=None):
         self.opts, self.model, self.device, self.recorder = opts, model, device, recorder
-        rank, size = world()
+        self.mesh = mesh if mesh is not None and mesh.model > 1 else None
+        rank, size = (self.mesh.data_index, self.mesh.data) if self.mesh else world()
         self.loaders = {
             "Train": HostLoader(train_reader, n_train, opts.batch_size[0], shuffle=True,
                                 drop_last=True, seed=opts.seed, num_workers=opts.n_threads,
@@ -188,7 +197,8 @@ class Trainer:
         self._panel_batch = None
 
     @classmethod
-    def from_files(cls, opts, model, device: torch.device, recorder=None) -> "Trainer":
+    def from_files(cls, opts, model, device: torch.device, recorder=None,
+                   mesh=None) -> "Trainer":
         """The dataset under opts.data_root. SemanticKITTI: sequences 00-07,
         09, 10 to train on, 08 to validate on (SalsaNext reads no images);
         alpha from the config's `cls_freq`, or from the class-map YAML's
@@ -203,7 +213,8 @@ class Trainer:
         frames, indexed by `sensat_frame_weights`, each read as a random
         window drawn from a RandomState seeded by opts.seed, and the val
         frames tiled at proj_h x proj_w; alpha `sensat_focal_alpha`, the
-        class names shifted by one (0: ignore). `recorder` as in Trainer."""
+        class names shifted by one (0: ignore). `recorder` and `mesh` as in
+        Trainer."""
         is_range = opts.net_type == "SalsaNext"
         if opts.dataset == "SensatUrban":
             trainset = SensatUrban(opts.data_root, "train")
@@ -218,7 +229,8 @@ class Trainer:
                        sensat_sample_reader(trainset, sensat_config(opts, True), weights,
                                             rng=np.random.RandomState(opts.seed)),
                        len(weights), sensat_sample_reader(valset, val_cfg, train=False),
-                       len(valset), device, sensat_focal_alpha(opts.nclasses), names, recorder)
+                       len(valset), device, sensat_focal_alpha(opts.nclasses), names, recorder,
+                       mesh)
         if opts.dataset == "SemanticKitti":
             trainset = SemanticKitti(opts.data_root, TRAIN_SEQUENCES, has_image=not is_range)
             valset = SemanticKitti(opts.data_root, VAL_SEQUENCES, has_image=not is_range)
@@ -254,7 +266,7 @@ class Trainer:
         else:
             reader, cfg = view_reader, view_config(opts)
         return cls(opts, model, reader(trainset, cfg), len(trainset), reader(valset, cfg),
-                   len(valset), device, alpha, trainset.mapped_cls_name, recorder)
+                   len(valset), device, alpha, trainset.mapped_cls_name, recorder, mesh)
 
     def n_batches(self, mode: str) -> int:
         """The steps of a `mode` epoch, the same on every process."""
@@ -311,14 +323,19 @@ class Trainer:
         return feature, label, points[0] if points else None
 
     def _step(self, batch: dict, train: bool) -> dict:
-        feature, label, points = self.view(
-            {k: torch.from_numpy(batch[k]).to(self.device) for k in self.view_keys}, train)
-        self._panel_batch = (feature, label)
-        extra = () if self.is_range else (points,)
-        if train:
-            return self.train_step(feature, label, self.generator, *extra)
-        valid = torch.from_numpy(batch["batch_valid"]).to(self.device)
-        return self.eval_step(feature, label, valid, *extra)[0]
+        """The view and the step of one batch; under the mesh's row split
+        the view is the data group's whole, the step this rank's rows of it
+        (the points' winner flags stay whole)."""
+        with self.mesh.split() if self.mesh else contextlib.nullcontext():
+            feature, label, points = self.view(
+                {k: torch.from_numpy(batch[k]).to(self.device) for k in self.view_keys}, train)
+            self._panel_batch = (feature, label)
+            feature, label = spatial.split_rows(feature), spatial.split_rows(label)
+            extra = () if self.is_range else (points,)
+            if train:
+                return self.train_step(feature, label, self.generator, *extra)
+            valid = torch.from_numpy(batch["batch_valid"]).to(self.device)
+            return self.eval_step(feature, label, valid, *extra)[0]
 
     def _drain(self, pending: list, loss_meter, aux_meters) -> float:
         """Read the pending steps' device results (this waits for them)."""

@@ -69,8 +69,12 @@ def test_launch_environments_and_mesh(monkeypatch):
     parallel.check_mesh(4, 1, 4)
     with pytest.raises(ValueError):
         parallel.check_mesh(2, 1, 4)
-    with pytest.raises(NotImplementedError, match="A17b"):
-        parallel.check_mesh(-1, 2, 4)
+    parallel.check_mesh(-1, 2, 4)
+    parallel.check_mesh(2, 2, 4)
+    with pytest.raises(ValueError):
+        parallel.check_mesh(-1, 3, 4)
+    with pytest.raises(ValueError):
+        parallel.check_mesh(4, 2, 4)
 
 
 def test_collectives_are_the_one_process_computation_without_a_group():
