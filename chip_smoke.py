@@ -124,9 +124,22 @@ Phases, each of which ends the run with a non-zero exit on failure:
      memory and ms/forward beside the unsplit run's; (b) the PMF nuScenes
      train step at 640x960, batch 3 (K2 with return_points, K1's flags),
      losses 1e-4 in float32 and gradients 1e-3 of their norm in float64 on
-     its first item, each rank's peak memory; (c) parallel/dryrun.py's
-     small step in float64 at model 2 equal to one process; both kernels
-     launched (`launches_split`, the two ranks' counts over (a) and (b)).
+     its first item, each rank's peak memory, and the float32 gradients'
+     distance from the unsplit step's without the Lovász terms (λ = 0, no
+     points) and with remat; (c) parallel/dryrun.py's small step in float64
+     at model 2 equal to one process; both kernels launched
+     (`launches_split`, the two ranks' counts over (a) and (b));
+ 13. remat and the FLOP accounting (`remat_phase`): (a) the PMF Trainer of
+     6(c) and the EPMF Trainer of 7(d) without and with the config's
+     `remat`, peak memory, ms/step and the loss terms within 1e-4, and the
+     float32 PMF nuScenes step of 12(b) without and with it; (b) a float64
+     PMF step on one full-width train item with remat equal to the step
+     without it (gradients 1e-10 of their norm, BN statistics and the
+     generator's state equal); (c) the same under phase 12's split; (d)
+     utils/flops.py's count of the PMF eval batch and train step, and the
+     MFU of phase 5's and 6(c)'s rates against the bf16 peak; (e) the
+     Trainer's `profile_dir` trace: one file, train iterations 2-4, CUDA
+     kernel events.
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Without a CUDA card the script exits 1 and
@@ -550,7 +563,7 @@ def hold_card_to_cpu(dev, tag: str, view, model, forward=fusion_forward):
           f"classes")
 
 
-def main_path(dev, cfg, batch, raw, smi):
+def main_path(dev, cfg, batch, raw, smi, timing: dict | None = None):
     from pmf_tpu_torch.config import Options
     from pmf_tpu_torch.data import build_batch
     from pmf_tpu_torch.data.perspective_pipeline import _build_batch
@@ -565,14 +578,16 @@ def main_path(dev, cfg, batch, raw, smi):
                    config={"sensor": sensor, "post": {"KNN": {"params": {
                        "knn": 5, "search": 5, "sigma": 1.0, "cutoff": 1.0}}}})
     return eval_path(dev, "[main]", "build_batch+PMFNet+argmax", model, opts, build_batch,
-                     _build_batch, cfg, batch, raw, (H, W), smi)
+                     _build_batch, cfg, batch, raw, (H, W), smi, timing)
 
 
-def eval_path(dev, tag, name, model, opts, build, build_with_fill, cfg, batch, raw, size, smi):
+def eval_path(dev, tag, name, model, opts, build, build_with_fill, cfg, batch, raw, size, smi,
+              timing: dict | None = None):
     """Batched eval (`build` → `model` → argmax) and one scan through the
     Inference.run loop (KNN on), with both kernels' launch counts read
     around them; the batched path against the same with the plain fill; its
-    scans/s. Returns the launch counts."""
+    scans/s (also to `timing["scans_s"]` when given). Returns the launch
+    counts."""
     from pmf_tpu_torch.ops import argmax_last, rasterize, zbuffer
     from pmf_tpu_torch.tools.infer_kitti import Inference
 
@@ -633,6 +648,8 @@ def eval_path(dev, tag, name, model, opts, build, build_with_fill, cfg, batch, r
             times.append(time.perf_counter() - t0)
         profile_step(lambda: batched(cfg), smi, name=f"eval batch ({name})")
     med = statistics.median(times)
+    if timing is not None:
+        timing["scans_s"] = b / med
     print(f"{tag} batched eval {name}, batch {b}, {h}x{w}, bf16: "
           f"{b / med:.2f} scans/s (median of {len(times)} batches: {med * 1e3:.2f} ms, "
           f"min {min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}) on {smi}")
@@ -826,9 +843,9 @@ def scan_reader(raw, n_pool: int, keys=None):
     return lambda i: {k: a[i % n_pool] for k, a in zip(keys, raw)}
 
 
-def full_width_train(dev, smi, timing: dict | None = None):
-    """(c): the Trainer at full width; returns the kernels' launch counts
-    over its train and validation runs (its ms/step to `timing`)."""
+def pmf_train_setup():
+    """The full-width PMF Trainer's Options (pmf_kitti.yaml's shapes, bf16,
+    batch 8, point Lovász) and its 2 batches of synthetic scans."""
     from pmf_tpu_torch.config import Options
     from pmf_tpu_torch.data.synthetic import make_inputs
 
@@ -836,7 +853,13 @@ def full_width_train(dev, smi, timing: dict | None = None):
               "proj_wt": TW, "h_pad": 7, "w_pad": 3, "n_points": N}
     opts = Options(config={"sensor": sensor, "augmentation": {"img_jitter": [0.4, 0.4, 0.4]}},
                    compute_dtype="bfloat16", batch_size=(B, B), n_epochs=5, warmup_epochs=1)
-    raw = make_inputs(np.random.default_rng(3), 2 * B, N, H, W)
+    return opts, make_inputs(np.random.default_rng(3), 2 * B, N, H, W)
+
+
+def full_width_train(dev, smi, timing: dict | None = None):
+    """(c): the Trainer at full width; returns the kernels' launch counts
+    over its train and validation runs (its ms/step to `timing`)."""
+    opts, raw = pmf_train_setup()
     return train_path(dev, smi, "[train] (c)", "PMF-ResNet34", opts, raw, (TH, TW), (H, W),
                       ("rasterize_zbuffer", "zbuffer_keys"), timing=timing)
 
@@ -1064,10 +1087,10 @@ def epmf_main_path(dev, cfg, batch, raw, smi):
                      build_v2_batch, _build_v2_batch, cfg, batch, raw, (HE, WE), smi)
 
 
-def epmf_train(dev, smi):
-    """7(d): the EPMF Trainer at full width (epmf_kitti.yaml: bf16, batch 2
+def epmf_train_setup():
+    """The full-width EPMF Trainer's Options (epmf_kitti.yaml: bf16, batch 2
     for training and 4 for validation, multi-task loss, image-domain
-    Lovász)."""
+    Lovász) and its 2 batches of synthetic scans."""
     from pmf_tpu_torch.config import Options
     from pmf_tpu_torch.data.synthetic import make_inputs
 
@@ -1077,7 +1100,12 @@ def epmf_train(dev, smi):
                            "use_mtloss": True, "point_lovasz": False},
                    net_type="EPMFNet", compute_dtype="bfloat16", batch_size=(BT, BV),
                    n_epochs=5, warmup_epochs=1)
-    raw = make_inputs(np.random.default_rng(4), 2 * BT, NE, H, W)
+    return opts, make_inputs(np.random.default_rng(4), 2 * BT, NE, H, W)
+
+
+def epmf_train(dev, smi):
+    """7(d): the EPMF Trainer at full width (`epmf_train_setup`)."""
+    opts, raw = epmf_train_setup()
     return train_path(dev, smi, "[epmf] (d)", "EPMF-ResNet34", opts, raw, (HE, WE), (HE, WE),
                       ("rasterize_zbuffer",))
 
@@ -2212,12 +2240,14 @@ def split_eval(model, f, mesh=None, argmax=False, gather=True):
         return [spatial.gather_rows(o) for o in out] if gather else out
 
 
-def split_train(dev, f, lab, pts, mesh=None, dtype=torch.float32) -> dict:
+def split_train(dev, f, lab, pts, mesh=None, dtype=torch.float32, remat=False,
+                lovasz=True) -> dict:
     """One PMF nuScenes train step in `dtype` (nusc_model's weights, the
     hybrid optimizer, point Lovász, dropout from a seeded generator) on the
-    batch, under `mesh`'s row split when given: its loss terms and the
-    averaged gradients and BN running variances after the update (on the
-    host)."""
+    batch, under `mesh`'s row split when given, with `remat` or without,
+    with the Lovász terms or without them (λ = 0, no points): its loss
+    terms and the averaged gradients and BN running variances after the
+    update (on the host)."""
     import contextlib
 
     from pmf_tpu_torch.parallel import spatial
@@ -2226,14 +2256,16 @@ def split_train(dev, f, lab, pts, mesh=None, dtype=torch.float32) -> dict:
     model = nusc_model("PMFNet", dev).to(dtype)
     model.dtype = dtype
     opt = HybridOptimizer(model, lambda step: 1e-3, 0.9, 1e-5)
-    step = make_pmf_train_step(model, opt, LossConfig(nclasses=17,
-                                                      alpha=tuple([0.0] + [1.0] * 16)))
+    cfg = LossConfig(nclasses=17, alpha=tuple([0.0] + [1.0] * 16),
+                     lambda_=1.0 if lovasz else 0.0)
+    step = make_pmf_train_step(model, opt, cfg, remat=remat)
     generator = torch.Generator(device=dev).manual_seed(5)
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True     # two unsplit runs then differ by atomics alone
     try:
         with mesh.split() if mesh else contextlib.nullcontext():
-            aux = step(spatial.split_rows(f.to(dtype)), spatial.split_rows(lab), generator, pts)
+            aux = step(spatial.split_rows(f.to(dtype)), spatial.split_rows(lab), generator,
+                       pts if lovasz else None)
     finally:
         torch.backends.cudnn.deterministic = deterministic
     return {"losses": {k: float(v) for k, v in aux.items() if k not in ("conf", "conf_cam")},
@@ -2311,10 +2343,23 @@ def split_job(rank: int, join, device: str = "cuda") -> dict:
         torch.cuda.synchronize()
         out["unsplit_ms_train"] = (time.perf_counter() - t0) * 1e3
         out["unsplit_peak_train"] = peak_gib()
+        t0 = time.perf_counter()
         out["ref_train_again"] = split_train(dev, *batch)
+        torch.cuda.synchronize()
+        out["unsplit_ms_train_again"] = (time.perf_counter() - t0) * 1e3
         f, lab, pts = batch
         out["ref_train_nudged"] = split_train(dev, f * (1 + 2 ** -23), lab, pts)
+        out["ref_train_nolovasz"] = split_train(dev, *batch, lovasz=False)
+        out["ref_train_nolovasz_nudged"] = split_train(dev, f * (1 + 2 ** -23), lab, pts,
+                                                       lovasz=False)
         del f
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out["ref_train_remat"] = split_train(dev, *batch, remat=True)
+        torch.cuda.synchronize()
+        out["unsplit_ms_train_remat"] = (time.perf_counter() - t0) * 1e3
+        out["unsplit_peak_train_remat"] = peak_gib()
         out["ref_train64"] = split_train(dev, *first_item(batch), dtype=torch.float64)
         out["ref_dryrun"] = dryrun.train_step(slice(0, dryrun.ROWS), dryrun.ROWS, seed=3,
                                               device=dev)
@@ -2349,6 +2394,10 @@ def split_job(rank: int, join, device: str = "cuda") -> dict:
     out["peak_train"] = peak_gib()
     step64 = split_train(dev, *first_item(batch), mesh=mesh, dtype=torch.float64)
     out["launches"] = read_launches()
+    step_remat = split_train(dev, *batch, mesh=mesh, remat=True)
+    step_nolovasz = split_train(dev, *batch, mesh=mesh, lovasz=False)
+    step64_remat = split_train(dev, *first_item(batch), mesh=mesh, dtype=torch.float64,
+                               remat=True)
     del batch
     small = dryrun.train_step(slice(0, dryrun.ROWS), dryrun.ROWS, seed=3, device=dev, mesh=mesh)
     if rank == 0:
@@ -2368,6 +2417,18 @@ def split_job(rank: int, join, device: str = "cuda") -> dict:
                                     for k, v in ref64["losses"].items())
         out["grad_err64"], out["grad_err64_each"] = grad_distance(step64["grads"], ref64["grads"])
         out["dryrun"] = dryrun._compare(out.pop("ref_dryrun"), small)
+        ref_remat = out.pop("ref_train_remat")
+        out["grad_err_remat"] = grad_distance(step_remat["grads"], ref["grads"])
+        out["grad_remat_unsplit"] = grad_distance(ref_remat["grads"], ref["grads"])
+        nolov, nolov_nudged = out.pop("ref_train_nolovasz"), out.pop("ref_train_nolovasz_nudged")
+        out["grad_err_nolovasz"] = grad_distance(step_nolovasz["grads"], nolov["grads"])
+        out["grad_nudge_nolovasz"] = grad_distance(nolov_nudged["grads"], nolov["grads"])
+        out["remat64"] = {
+            "grads": grad_distance(step64_remat["grads"], step64["grads"]),
+            "losses": max(abs(step64_remat["losses"][k] - v) / max(abs(v), 1e-30)
+                          for k, v in step64["losses"].items()),
+            "var": max(float((step64_remat["var"][k] - v).norm() / v.norm())
+                       for k, v in step64["var"].items())}
     return out
 
 
@@ -2423,6 +2484,16 @@ def split_phase(dev, smi) -> dict:
     print(f"[split] (b) peak memory a rank {per_rank('peak_train')} GiB against "
           f"{r0['unsplit_peak_train']:.2f} GiB unsplit; ms/step a rank {per_rank('ms_train')} "
           f"against {r0['unsplit_ms_train']:.2f} unsplit (first step, host-inclusive) on {smi}")
+    (lov, lov_each), (lov_nudge, lov_nudge_each) = (r0["grad_err_nolovasz"],
+                                                    r0["grad_nudge_nolovasz"])
+    print(f"[split] (b) float32 gradients of the split step from the unsplit one, of their "
+          f"norm (all parameters; parameter by parameter at most): with the Lovász terms "
+          f"{r0['grad_err']:.3g} ({r0['grad_err_each']:.3g}), the nudged unsplit step "
+          f"{r0['grad_nudge']:.3g} ({r0['grad_nudge_each']:.3g}); without them (λ = 0, no "
+          f"points) {lov:.3g} ({lov_each:.3g}), nudged {lov_nudge:.3g} ({lov_nudge_each:.3g}); "
+          f"the split step with remat {r0['grad_err_remat'][0]:.3g} "
+          f"({r0['grad_err_remat'][1]:.3g}), the unsplit step with remat "
+          f"{r0['grad_remat_unsplit'][0]:.3g} ({r0['grad_remat_unsplit'][1]:.3g}) on {smi}")
     d = r0["dryrun"]
     print(f"[split] (c) dryrun step float64 at model {SPLIT_MODEL}: losses {d['loss_rel_err']:.3g}, "
           f"BN statistics {d['stats_abs_err']:.3g}, parameters {d['param_rel_err']:.3g} of "
@@ -2439,7 +2510,207 @@ def split_phase(dev, smi) -> dict:
         fail("[split] (c) the small step at model 2 differs from one process")
     if launches["rasterize_zbuffer"] == 0 or launches["zbuffer_keys"] == 0:
         fail(f"[split] a kernel of the split path was not launched: {launches}")
-    return launches
+    return launches, r0
+
+
+def remat_trainer(dev, opts, raw, remat: bool, size, count: bool = False) -> dict:
+    """The Trainer of `opts` (random weights from a seed) on the in-memory
+    samples `raw`, with `remat` or without: epoch 0's means of the loss
+    terms (2 steps), ms/step over 4 more steps (host-inclusive), the peak
+    device memory over the 6, and with `count` the FLOPs of one train step
+    (`utils.count_flops`)."""
+    from pmf_tpu_torch.models import build_model, random_weights
+    from pmf_tpu_torch.train import Trainer
+    from pmf_tpu_torch.utils import count_flops
+
+    opts = copy.deepcopy(opts)
+    opts.config["remat"] = remat
+    bt = opts.batch_size[0]
+    torch.manual_seed(0)
+    model = random_weights(build_model(opts), seed=0).to(dev)
+    trainer = Trainer(opts, model, scan_reader(raw, 2 * bt), 2 * bt, scan_reader(raw, 2 * bt),
+                      bt, dev, [0.0] + [1.0] * (opts.nclasses - 1))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    first = trainer.run(0, "Train")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for epoch in (1, 2):
+        trainer.run(epoch, "Train")
+    torch.cuda.synchronize()
+    out = {"ms": (time.perf_counter() - t0) / 4 * 1e3, "peak": peak_gib(),
+           "losses": {k: v for k, v in first.items() if k.startswith(("loss", "Loss"))}}
+    if not all(np.isfinite(v) for v in out["losses"].values()):
+        fail(f"[remat] (a) non-finite losses {first}")
+    if count:
+        x = {k: torch.from_numpy(a).to(dev) for k, a in next(trainer.batches("Train", 0)).items()}
+        f, lab, pts = trainer.view(x, True)
+        if f.shape[1:3] != size:
+            fail(f"[remat] (d) the train view is {tuple(f.shape)}")
+        out["flops"] = count_flops(trainer.train_step, f, lab, trainer.generator, pts)
+    del trainer, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def remat_float64_item(dev) -> dict:
+    """(b): one float64 PMF train step (base 32, dropout 0.2 from a seeded
+    generator, point Lovász) on one full-width item of the KITTI train view
+    (256x1024, fixed draws), with remat against without: the gradients'
+    distance, the BN running statistics and the generator's state after the
+    step."""
+    from pmf_tpu_torch.data import build_batch
+    from pmf_tpu_torch.data.synthetic import make_inputs
+    from pmf_tpu_torch.models import PMFNet, random_weights
+    from pmf_tpu_torch.train import HybridOptimizer, LossConfig, make_pmf_train_step
+
+    raw = make_inputs(np.random.default_rng(13), 1, N, H, W)
+    with torch.no_grad():
+        f, _, lab, pts = build_batch(*on(raw, dev), train_cfg(), True,
+                                     aug_override=fixed_aug(1, dev), return_points=True)
+    torch.manual_seed(0)
+    base = random_weights(PMFNet(nclasses=20, base_channels=32), seed=0).double()
+    base.dtype = torch.float64
+    runs = []
+    for remat in (False, True):
+        model = copy.deepcopy(base).to(dev)
+        opt = HybridOptimizer(model, lambda step: 1e-3, 0.9, 1e-5)
+        step = make_pmf_train_step(model, opt, LossConfig(alpha=tuple([0.0] + [1.0] * 19)),
+                                   remat=remat)
+        generator = torch.Generator(device=dev).manual_seed(7)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        aux = step(f.double(), lab, generator, pts)
+        runs.append({"losses": {k: float(v) for k, v in aux.items()
+                                if k not in ("conf", "conf_cam")},
+                     "grads": {k: p.grad.detach().cpu() for k, p in model.named_parameters()},
+                     "stats": {k: v.cpu() for k, v in model.state_dict().items()
+                               if "running" in k},
+                     "generator": generator.get_state(), "peak": peak_gib()})
+        del model, opt, step
+    off, on_ = runs
+    return {"grads": grad_distance(on_["grads"], off["grads"]),
+            "losses": max(abs(on_["losses"][k] - v) / max(abs(v), 1e-30)
+                          for k, v in off["losses"].items()),
+            "stats_equal": all(torch.equal(on_["stats"][k], v) for k, v in off["stats"].items()),
+            "generator_equal": torch.equal(on_["generator"], off["generator"]),
+            "peaks": (off["peak"], on_["peak"])}
+
+
+def profile_dir_run(dev) -> dict:
+    """(e): the Trainer with `profile_dir` (parallel/dryrun.py's tiny PMF
+    scans on the card, 5 train iterations): its trace files, the labels of
+    the iterations in them and the count of CUDA kernel events."""
+    from pmf_tpu_torch.parallel import dryrun
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "profile_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    trainer = dryrun.tiny_trainer(10, 5, dev, config={"profile_dir": root})
+    trainer.run(0, "Train")
+    trainer.run(1, "Train")
+    files = sorted(os.listdir(root))
+    events = []
+    for name in files:
+        with open(os.path.join(root, name)) as fh:
+            events += json.load(fh)["traceEvents"]
+    labels = sorted({e.get("name", "") for e in events if "iteration" in e.get("name", "")})
+    out = {"files": files, "labels": labels,
+           "kernels": sum(e.get("cat") == "kernel" for e in events),
+           "bytes": sum(os.path.getsize(os.path.join(root, n)) for n in files)}
+    shutil.rmtree(root)
+    return out
+
+
+def remat_phase(dev, smi, timing: dict, split: dict) -> None:
+    """Phase 13: remat and the FLOP accounting on the card. (a) the PMF
+    Trainer at 6(c)'s shapes (bf16, batch 8, 256x1024) and the EPMF Trainer
+    at 7(d)'s (batch 2, 320x1280), each without and with `remat`: peak
+    memory, ms/step, and epoch 0's loss terms within 1e-4 of each other;
+    the float32 PMF nuScenes step of 12(b) (batch 3, 640x960) without and
+    with remat, from phase 12's unsplit runs; (b) remat_float64_item:
+    gradients within 1e-10 of their norm, BN statistics and the generator's
+    state equal; (c) from phase 12's two gloo ranks (data 1 x model 2): the
+    float64 split step on the train batch's first item with remat against
+    without, gradients, losses and BN variances within 1e-10; (d) the FLOPs
+    of the PMF eval batch (384x1232, batch 8, on `meta` tensors) and of the
+    PMF train step (from (a)), and the MFU of phase 5's scans/s and 6(c)'s
+    ms/step against the H100's bf16 peak; (e) profile_dir_run: one trace
+    file with train iterations 2-4 and CUDA kernel events."""
+    from pmf_tpu_torch.models import PMFNet, random_weights
+    from pmf_tpu_torch.utils import H100_BF16_PEAK_FLOPS, count_flops, mfu
+
+    t0 = time.perf_counter()
+    runs = {}
+    for name, (opts, raw), size in (("PMF", pmf_train_setup(), (TH, TW)),
+                                    ("EPMF", epmf_train_setup(), (HE, WE))):
+        runs[name] = [remat_trainer(dev, opts, raw, remat, size, count=name == "PMF")
+                      for remat in (False, True)]
+        off, on_ = runs[name]
+        err = max(abs(on_["losses"][k] - v) / max(abs(v), 1e-30) for k, v in off["losses"].items())
+        bt = opts.batch_size[0]
+        print(f"[remat] (a) {name}-ResNet34 Trainer bf16, batch {bt}, {size[0]}x{size[1]}: "
+              f"peak {off['peak']:.2f} GiB without remat, {on_['peak']:.2f} GiB with it "
+              f"(torch.cuda.max_memory_allocated); {off['ms']:.2f} against {on_['ms']:.2f} "
+              f"ms/step (4 steps after 2, host-inclusive); epoch 0's loss terms within "
+              f"{err:.3g} (tol 1e-4) on {smi}")
+        if not err <= 1e-4:
+            fail(f"[remat] (a) {name}: the loss terms with remat differ from those without: "
+                 f"{off['losses']} against {on_['losses']}")
+    print(f"[remat] (a) PMF nuScenes train step float32, batch {NBT}, {NTH}x{NTW} (phase 12, "
+          f"unsplit): peak {split['unsplit_peak_train']:.2f} GiB without remat, "
+          f"{split['unsplit_peak_train_remat']:.2f} GiB with it; "
+          f"{split['unsplit_ms_train_again']:.2f} against {split['unsplit_ms_train_remat']:.2f} "
+          f"ms (the second step of the process without remat, the fifth with it; each with the "
+          f"model's build, host-inclusive) on {smi}")
+
+    b = remat_float64_item(dev)
+    print(f"[remat] (b) PMF-ResNet34 float64 train step on one {TH}x{TW} item, dropout 0.2, "
+          f"remat against none: gradients {b['grads'][0]:.3g} of their norm (parameter by "
+          f"parameter at most {b['grads'][1]:.3g}; tol 1e-10), losses {b['losses']:.3g}, BN "
+          f"statistics equal {b['stats_equal']}, generator state equal {b['generator_equal']}; "
+          f"peak {b['peaks'][0]:.2f} against {b['peaks'][1]:.2f} GiB on {smi}")
+    if not (b["grads"][1] <= 1e-10 and b["losses"] <= 1e-10 and b["stats_equal"]
+            and b["generator_equal"]):
+        fail("[remat] (b) the float64 step with remat differs from the step without it")
+
+    c = split["remat64"]
+    print(f"[remat] (c) the split float64 step (data 1 x model 2, gloo, first item of "
+          f"{NTH}x{NTW}) with remat against without: gradients {c['grads'][0]:.3g} of their "
+          f"norm (parameter by parameter at most {c['grads'][1]:.3g}), losses "
+          f"{c['losses']:.3g}, BN variances {c['var']:.3g} (tol 1e-10) on {smi}")
+    if not (c["grads"][1] <= 1e-10 and c["losses"] <= 1e-10 and c["var"] <= 1e-10):
+        fail("[remat] (c) the split step with remat differs from the split step without it")
+
+    torch.manual_seed(0)
+    model = random_weights(PMFNet(nclasses=20, base_channels=32, dtype=torch.bfloat16),
+                           seed=0).eval().to("meta")
+    eval_flops = count_flops(model, torch.zeros(B, H, W, 5, device="meta"),
+                             torch.zeros(B, H, W, 3, device="meta"))
+    train_flops = runs["PMF"][0]["flops"]
+    remat_flops = runs["PMF"][1]["flops"]
+    eval_rate = eval_flops / B * timing["scans_s"]
+    train_rate = train_flops / (timing["ms_step"] / 1e3)
+    print(f"[remat] (d) FLOPs (utils/flops.py, pmf_tpu's count): PMF-ResNet34 eval batch {B}, "
+          f"{H}x{W}: {eval_flops / 1e12:.4f} TFLOP ({eval_flops / B / 1e9:.2f} GFLOP/scan); "
+          f"train step batch {B}, {TH}x{TW}: {train_flops / 1e12:.4f} TFLOP, with remat "
+          f"{remat_flops / 1e12:.4f} (+{(remat_flops / train_flops - 1) * 100:.1f} %) on {smi}")
+    print(f"[remat] (d) MFU against {H100_BF16_PEAK_FLOPS / 1e12:.0f} TFLOP/s bf16: eval "
+          f"{timing['scans_s']:.2f} scans/s (phase 5) = {eval_rate / 1e12:.2f} TFLOP/s, MFU "
+          f"{mfu(eval_rate):.4f}; train {timing['ms_step']:.2f} ms/step (6(c)) = "
+          f"{train_rate / 1e12:.2f} TFLOP/s, MFU {mfu(train_rate):.4f} on {smi}")
+    if not 0 < eval_flops < train_flops < remat_flops:
+        fail(f"[remat] (d) FLOPs eval {eval_flops}, train {train_flops}, remat {remat_flops}")
+
+    e = profile_dir_run(dev)
+    print(f"[remat] (e) Trainer with profile_dir: {len(e['files'])} trace file(s) {e['files']} "
+          f"({e['bytes']} bytes), labels {e['labels']}, {e['kernels']} CUDA kernel events on "
+          f"{smi}")
+    if (len(e["files"]) != 1 or e["kernels"] == 0
+            or e["labels"] != [f"Train iteration {i}" for i in (2, 3, 4)]):
+        fail("[remat] (e) the profile_dir trace is not one file of train iterations 2-4 with "
+             "kernel events")
+    print(f"[remat] phase 13 {time.perf_counter() - t0:.1f} s (phase 12's runs for (a) and (c) "
+          "not included)")
 
 
 def main():
@@ -2473,10 +2744,10 @@ def main():
 
     entries = check_kernels(dev, cfg, batch, smi)
     check_reference(dev)
-    launches = main_path(dev, cfg, batch, raw, smi)
+    timing: dict = {}
+    launches = main_path(dev, cfg, batch, raw, smi, timing)
     check_train_view(dev, batch)
     check_train_reference(dev)
-    timing: dict = {}
     launches_train = full_width_train(dev, smi, timing)
     del batch
 
@@ -2509,11 +2780,13 @@ def main():
     launches_cli = cli_train(dev, smi, timing["ms_step"])
     launches_ddp = nccl_world1(dev, smi)
     t_split = time.perf_counter()
-    launches_split = split_phase(dev, smi)
+    launches_split, split = split_phase(dev, smi)
+    t_remat = time.perf_counter()
+    remat_phase(dev, smi, timing, split)
     print(f"[time] phases 1-7 {t_range - t_run:.1f} s, phase 8 {t_nusc - t_range:.1f} s, phase 9 "
           f"{t_a2d2 - t_nusc:.1f} s, phase 10 {t_cli - t_a2d2:.1f} s, phase 11 "
-          f"{t_split - t_cli:.1f} s, phase 12 {time.perf_counter() - t_split:.1f} s (the build "
-          "included in phase 2)")
+          f"{t_split - t_cli:.1f} s, phase 12 {t_remat - t_split:.1f} s, phase 13 "
+          f"{time.perf_counter() - t_remat:.1f} s (the build included in phase 2)")
     range_keys = ("range_max_abs_err", "range_ms", "range_device_ms", "range_plain_ms",
                   "range_bound_ms", "range_bound_by", "range_library_ms")
     for e in entries:

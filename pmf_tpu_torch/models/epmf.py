@@ -27,7 +27,7 @@ from torch import nn
 
 from ..ops.resize import PixelShuffle
 from ..parallel import spatial
-from .layers import BatchNorm2d, Conv2d, leaky_relu
+from .layers import BatchNorm2d, Conv2d, leaky_relu, remat_stage
 from .pmf import ASPP, LeakyReLU, ResidualBasedFusionBlock, RGBDecoder
 from .resnet import ResNetEncoder
 from .salsanext import ResBlock, UpBlock
@@ -126,23 +126,31 @@ class SalsaNextFusionV2(nn.Module):
         self.extraUpSample = extra_upsample(bc, 4 * bc)
         self.logits = Conv2d(bc, nclasses, 1)
 
-    def forward(self, x, img_features, generator=None):
+    def down(self, i: int, x, img, dtype: torch.dtype, generator=None):
+        """fusionblock_{i} and resBlock{i} after it, in `dtype`: (pooled
+        output, skip)."""
+        fused = getattr(self, f"fusionblock_{i}")(x, img)
+        return getattr(self, f"resBlock{i}")(fused.to(dtype), generator)
+
+    def forward(self, x, img_features, generator=None, remat: bool = False):
+        """With `remat` each context block, each fusion block with its
+        resBlock, the bottleneck, each upBlock and the full-resolution head
+        are recomputed in the backward pass (`layers.remat_stage`)."""
         g, dt = generator, x.dtype
-        c = self.downCntx3(self.downCntx2(self.downCntx(x, dt), dt), dt)
-        c = self.fusionblock_1(c, img_features[0])
-        down0c, down0b = self.resBlock1(c.to(dt), g)
-        down0c = self.fusionblock_2(down0c, img_features[1])
-        down1c, down1b = self.resBlock2(down0c, g)
-        down1c = self.fusionblock_3(down1c, img_features[2])
-        down2c, down2b = self.resBlock3(down1c, g)
-        down2c = self.fusionblock_4(down2c, img_features[3])
-        down3c, down3b = self.resBlock4(down2c, g)
-        down5c = self.aspp(self.resBlock5(down3c, g))
-        up = self.upBlock1(down5c, down3b, g)
-        up = self.upBlock2(up, down2b, g)
-        up = self.upBlock3(up, down1b, g)
-        up = self.upBlock4(up, down0b, g)
-        logits = self.logits(self.extraUpSample(up)).float()
+        run = lambda fn, *args: remat_stage(remat, fn, *args, generator=g)
+        c = x
+        for block in (self.downCntx, self.downCntx2, self.downCntx3):
+            c = run(block, c, dt)
+        skips = []
+        for i in range(1, 5):
+            c, skip = run(lambda c, img, i=i: self.down(i, c, img, dt, g), c, img_features[i - 1])
+            skips.append(skip)
+        down5c = run(lambda c: self.aspp(self.resBlock5(c, g)), c)
+        up = down5c
+        for block, skip in zip((self.upBlock1, self.upBlock2, self.upBlock3, self.upBlock4),
+                               reversed(skips)):
+            up = run(block, up, skip, g)
+        logits = run(lambda up: self.logits(self.extraUpSample(up)).float(), up)
         return torch.softmax(logits, dim=1), down5c
 
 
@@ -157,10 +165,13 @@ class RGBDecoderV2(RGBDecoder):
         self.extraUpSample = extra_upsample(8 * lbc, 8 * lbc)
         self.aspp = ASPP(in_channels[3], in_channels[3])
 
-    def forward(self, inputs, lidar_feature):
+    def fuse(self, feature, lidar_feature):
         lid = self.extraUpSample(lidar_feature)
-        fuse = torch.cat([lid, self.aspp(inputs[3]).to(lid.dtype)], 1)
-        return super().forward([*inputs[:3], fuse])
+        return torch.cat([lid, self.aspp(feature).to(lid.dtype)], 1)
+
+    def forward(self, inputs, lidar_feature, remat: bool = False):
+        fuse = remat_stage(remat, self.fuse, inputs[3], lidar_feature)
+        return super().forward([*inputs[:3], fuse], remat)
 
 
 class EPMFNet(nn.Module):
@@ -172,7 +183,8 @@ class EPMFNet(nn.Module):
     `dtype` is the compute dtype (float32 or bfloat16); parameters and BN
     statistics stay float32. In train mode the channel dropout draws its
     masks from `generator`, which forward then needs unless dropout_rate is
-    0.
+    0. With `remat` the stages of the three streams are recomputed in the
+    backward pass instead of kept (PMFNet's).
     """
 
     def __init__(self, nclasses: int = 20, base_channels: int = 32,
@@ -188,12 +200,12 @@ class EPMFNet(nn.Module):
         self.lidar_stream = SalsaNextFusionV2(chans, nclasses, base_channels,
                                               dropout_rate=dropout_rate)
 
-    def forward(self, pcd_feature, img_feature, generator=None):
+    def forward(self, pcd_feature, img_feature, generator=None, remat: bool = False):
         if spatial.height(pcd_feature, 1) % 32 or pcd_feature.shape[2] % 32:
             raise ValueError(f"EPMFNet needs sizes divisible by 32: {tuple(pcd_feature.shape)}")
         pcd = pcd_feature.permute(0, 3, 1, 2).to(self.dtype)
         img = img_feature.permute(0, 3, 1, 2).to(self.dtype)
-        img_feats = self.camera_stream_encoder(img, generator)
-        lidar, lidar_feature = self.lidar_stream(pcd, img_feats, generator)
-        camera = self.camera_stream_decoder(img_feats, lidar_feature)
+        img_feats = self.camera_stream_encoder(img, generator, remat)
+        lidar, lidar_feature = self.lidar_stream(pcd, img_feats, generator, remat)
+        camera = self.camera_stream_decoder(img_feats, lidar_feature, remat)
         return lidar.permute(0, 2, 3, 1), camera.permute(0, 2, 3, 1)

@@ -3,14 +3,27 @@
 Parameters stay float32 whatever the compute dtype; a conv casts its weights
 to the dtype of its input, and BatchNorm computes its coefficients in float32
 before applying them in that dtype, as the JAX package does.
+
+`remat_stage` is the nets' rematerialization (pmf_tpu's `remat`, which
+wraps the train-mode forward in `jax.checkpoint`): a stage's activations are
+computed again in the backward pass instead of being kept.
 """
 from __future__ import annotations
+
+import contextlib
+from contextvars import ContextVar
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..parallel import global_sum_count, rand_rows, spatial
+
+# True while `remat_stage` recomputes a stage in the backward pass: the
+# stage's BN layers took this batch's statistics into their running ones in
+# the forward
+_RECOMPUTING: ContextVar = ContextVar("pmf_tpu_torch_recomputing", default=False)
 
 
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:
@@ -99,10 +112,11 @@ class BatchNorm2d(nn.BatchNorm2d):
                                        xf.numel() // xf.shape[1])
             mean = sums[0] / n
             var = sums[1] / n - mean * mean
-            with torch.no_grad():
-                m = 1.0 - self.momentum
-                self.running_mean.copy_(m * self.running_mean + self.momentum * mean)
-                self.running_var.copy_(m * self.running_var + self.momentum * var)
+            if not _RECOMPUTING.get():
+                with torch.no_grad():
+                    m = 1.0 - self.momentum
+                    self.running_mean.copy_(m * self.running_mean + self.momentum * mean)
+                    self.running_var.copy_(m * self.running_var + self.momentum * var)
             a = torch.rsqrt(var + self.eps) * self.weight
             b = self.bias - mean * a
         x = x if dtype is None else x.to(dtype)
@@ -162,3 +176,45 @@ def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
         return F.max_pool2d(x, 3, stride=2, padding=1)
     return spatial.window_op(x, 3, 2, 1, 1, lambda block: F.max_pool2d(
         block, 3, stride=2, padding=(0, 1)), fill=float("-inf"))
+
+
+class _Recompute:
+    """The context of a stage's recomputation, set up at its forward: the
+    draws' generator at the state it had before the forward (and back at the
+    state it stands at after), the row split that was in force (the backward
+    pass may run on another thread, which does not see the caller's
+    context), and BN's running statistics left alone."""
+
+    def __init__(self, generator: torch.Generator | None):
+        self.generator, self.split = generator, spatial.active()
+        self.state = None if generator is None else generator.get_state()
+        self._undo: list = []
+
+    def __enter__(self):
+        now = None if self.generator is None else self.generator.get_state()
+        if now is not None:
+            self.generator.set_state(self.state)
+        split = contextlib.nullcontext() if self.split is None else self.split
+        split.__enter__()
+        self._undo.append((now, split, _RECOMPUTING.set(True)))
+
+    def __exit__(self, *exc):
+        now, split, mark = self._undo.pop()
+        _RECOMPUTING.reset(mark)
+        split.__exit__(*exc)
+        if now is not None:
+            self.generator.set_state(now)
+
+
+def remat_stage(remat: bool, fn, *args, generator: torch.Generator | None = None):
+    """fn(*args). With `remat`, while gradients are on, fn's activations are
+    not kept for the backward pass, which runs fn again on the same args
+    (torch.utils.checkpoint), and the same numbers come out: `generator`, the
+    one fn's dropout draws from, replays its draws (checkpoint restores only
+    the default generators, which the nets do not draw from), BN does not
+    move its running statistics a second time, and the row split in force
+    at the forward is in force again."""
+    if not (remat and torch.is_grad_enabled()):
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
+                      context_fn=lambda: (contextlib.nullcontext(), _Recompute(generator)))

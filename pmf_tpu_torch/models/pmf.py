@@ -14,7 +14,7 @@ from torch import nn
 
 from ..ops.resize import upsample_bilinear
 from ..parallel import spatial
-from .layers import BatchNorm2d, Conv2d, conv_bn, leaky_relu
+from .layers import BatchNorm2d, Conv2d, conv_bn, leaky_relu, remat_stage
 from .resnet import ResNetEncoder
 from .salsanext import ResBlock, ResContextBlock, SalsaNext, UpBlock
 
@@ -96,22 +96,28 @@ class SalsaNextFusion(nn.Module):
         self.upBlock4 = UpBlock(2 * bc, 2 * bc, bc, p, drop_out=False)
         self.logits = Conv2d(bc, nclasses, 1)
 
-    def forward(self, x, img_features, generator=None):
+    def down(self, i: int, x, img, generator=None):
+        """resBlock{i} and its fusion block: (fused pooled output, skip)."""
+        down, skip = getattr(self, f"resBlock{i}")(x, generator)
+        return getattr(self, f"fusionblock_{i}")(down, img), skip
+
+    def forward(self, x, img_features, generator=None, remat: bool = False):
+        """With `remat` each context block, each resBlock with its fusion
+        block, the bottleneck and each upBlock are recomputed in the
+        backward pass (`layers.remat_stage`)."""
         g = generator
-        c = self.downCntx3(self.downCntx2(self.downCntx(x)))
-        down0c, down0b = self.resBlock1(c, g)
-        down0c = self.fusionblock_1(down0c, img_features[0])
-        down1c, down1b = self.resBlock2(down0c, g)
-        down1c = self.fusionblock_2(down1c, img_features[1])
-        down2c, down2b = self.resBlock3(down1c, g)
-        down2c = self.fusionblock_3(down2c, img_features[2])
-        down3c, down3b = self.resBlock4(down2c, g)
-        down3c = self.fusionblock_4(down3c, img_features[3])
-        down5c = self.aspp(self.resBlock5(down3c, g))
-        up = self.upBlock1(down5c, down3b, g)
-        up = self.upBlock2(up, down2b, g)
-        up = self.upBlock3(up, down1b, g)
-        up = self.upBlock4(up, down0b, g)
+        run = lambda fn, *args: remat_stage(remat, fn, *args, generator=g)
+        c = x
+        for block in (self.downCntx, self.downCntx2, self.downCntx3):
+            c = run(block, c)
+        skips = []
+        for i in range(1, 5):
+            c, skip = run(lambda c, img, i=i: self.down(i, c, img, g), c, img_features[i - 1])
+            skips.append(skip)
+        up = run(lambda c: self.aspp(self.resBlock5(c, g)), c)
+        for block, skip in zip((self.upBlock1, self.upBlock2, self.upBlock3, self.upBlock4),
+                               reversed(skips)):
+            up = run(block, up, skip, g)
         return torch.softmax(self.logits(up).float(), dim=1)
 
 
@@ -133,11 +139,14 @@ class RGBDecoder(nn.Module):
         self.up_1a = stage(bc + in_channels[0], 1, 0)
         self.conv = Conv2d(bc, nclasses, 3, padding=1)
 
-    def forward(self, inputs):
-        up = upsample_bilinear(self.up_4a(inputs[3]))
-        up = upsample_bilinear(self.up_3a(torch.cat([up, inputs[2]], 1)))
-        up = upsample_bilinear(self.up_2a(torch.cat([up, inputs[1]], 1)))
-        up = upsample_bilinear(self.up_1a(torch.cat([up, inputs[0]], 1)))
+    def forward(self, inputs, remat: bool = False):
+        """With `remat` each stage is recomputed in the backward pass
+        (`layers.remat_stage`)."""
+        up = remat_stage(remat, lambda x: upsample_bilinear(self.up_4a(x)), inputs[3])
+        for block, skip in ((self.up_3a, inputs[2]), (self.up_2a, inputs[1]),
+                            (self.up_1a, inputs[0])):
+            up = remat_stage(remat, lambda u, s, block=block: upsample_bilinear(
+                block(torch.cat([u, s], 1))), up, skip)
         return torch.softmax(self.conv(up).float(), dim=1)
 
 
@@ -148,7 +157,8 @@ class PMFNet(nn.Module):
     `dtype` is the compute dtype (float32 or bfloat16); parameters and BN
     statistics stay float32. In train mode the channel dropout draws its
     masks from `generator`, which forward then needs unless dropout_rate is
-    0.
+    0. With `remat` (pmf_tpu's train option) the stages of the three
+    streams are recomputed in the backward pass instead of kept.
     """
 
     def __init__(self, nclasses: int = 20, base_channels: int = 32,
@@ -163,12 +173,12 @@ class PMFNet(nn.Module):
         self.lidar_stream = SalsaNextFusion(chans, nclasses, base_channels,
                                             dropout_rate=dropout_rate)
 
-    def forward(self, pcd_feature, img_feature, generator=None):
+    def forward(self, pcd_feature, img_feature, generator=None, remat: bool = False):
         pcd = pcd_feature.permute(0, 3, 1, 2).to(self.dtype)
         img = img_feature.permute(0, 3, 1, 2).to(self.dtype)
-        img_feats = self.camera_stream_encoder(img, generator)
-        lidar = self.lidar_stream(pcd, img_feats, generator)
-        camera = self.camera_stream_decoder(img_feats)
+        img_feats = self.camera_stream_encoder(img, generator, remat)
+        lidar = self.lidar_stream(pcd, img_feats, generator, remat)
+        camera = self.camera_stream_decoder(img_feats, remat)
         return lidar.permute(0, 2, 3, 1), camera.permute(0, 2, 3, 1)
 
 

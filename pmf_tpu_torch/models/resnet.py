@@ -14,7 +14,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..parallel import spatial
-from .layers import BatchNorm2d, Conv2d, Dropout2d, conv_bn, max_pool_3x3_s2
+from .layers import BatchNorm2d, Conv2d, Dropout2d, conv_bn, max_pool_3x3_s2, remat_stage
 
 STAGES = {
     "resnet34": ([3, 4, 6, 3], "basic"),
@@ -93,13 +93,18 @@ class ResNetEncoder(nn.Module):
             setattr(self, f"layer{stage + 1}", nn.Sequential(*layers))
         self.dropout = Dropout2d(dropout_rate)
 
-    def forward(self, x, generator=None):
+    def stem(self, x):
+        return max_pool_3x3_s2(conv_bn(x, self.conv1, self.bn1, F.relu))
+
+    def forward(self, x, generator=None, remat: bool = False):
+        """With `remat` the stem and each stage are recomputed in the
+        backward pass (`layers.remat_stage`)."""
         if spatial.height(x) % 16 or x.shape[3] % 16:
             raise ValueError(f"invalid input size: {tuple(x.shape)}")
-        out = max_pool_3x3_s2(conv_bn(x, self.conv1, self.bn1, F.relu))
+        out = remat_stage(remat, self.stem, x)
         feats = []
         for layer in (self.layer1, self.layer2, self.layer3, self.layer4):
-            out = layer(out)
+            out = remat_stage(remat, layer, out)
             feats.append(out)
         feats[2] = self.dropout(feats[2], generator)
         feats[3] = self.dropout(feats[3], generator)

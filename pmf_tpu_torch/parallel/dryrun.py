@@ -86,13 +86,14 @@ def tiny_model(dtype=torch.float64):
 
 
 def train_step(rows: slice, global_batch: int, seed: int = 0, dtype=torch.float64,
-               device=torch.device("cpu"), steps: int = 1, mesh=None) -> dict:
+               device=torch.device("cpu"), steps: int = 1, mesh=None,
+               remat: bool = False) -> dict:
     """`steps` PMF train steps (view and step, each with new draws) on rows
     `rows` of the global batch of `global_batch` scans, on `device`: the
     last step's loss terms and confusion matrices, and the BN running
     statistics and parameters after the updates, as numpy. Under a `mesh`
     of model size > 1 each step runs on this rank's block of the view's
-    rows."""
+    rows. `remat` recomputes the model's stages in the backward pass."""
     from ..data import build_batch
     from ..train import HybridOptimizer, LossConfig, make_pmf_train_step
 
@@ -100,7 +101,7 @@ def train_step(rows: slice, global_batch: int, seed: int = 0, dtype=torch.float6
     model = tiny_model(dtype).to(device)
     optimizer = HybridOptimizer(model, lambda step: 0.01, 0.9, 1e-5)
     alpha = tuple(np.random.default_rng(seed + 1).uniform(0.2, 1, 20).tolist())
-    step = make_pmf_train_step(model, optimizer, LossConfig(alpha=alpha))
+    step = make_pmf_train_step(model, optimizer, LossConfig(alpha=alpha), remat=remat)
     generator = torch.Generator(device=device).manual_seed(seed)
     for _ in range(steps):
         with _split(mesh):
@@ -119,22 +120,31 @@ def _split(mesh):
     return mesh.split() if mesh is not None and mesh.model > 1 else contextlib.nullcontext()
 
 
-def validation(seed: int = 0, mesh=None) -> dict:
-    """The Trainer's validation pass over N_VAL in-memory scans in batches
-    of VAL_BS (float32), under `mesh`: its confusion matrices and batch
-    count."""
+def tiny_trainer(n: int, seed: int = 0, device=torch.device("cpu"), mesh=None, config=None,
+                 **options):
+    """The Trainer of `tiny_model` (float32) on `n` in-memory tiny scans
+    (`tiny_inputs`), training and validating on them in batches of ROWS
+    and VAL_BS, with the config's `config` keys and Options `options`."""
     from ..config import Options
     from ..train import Trainer
 
-    raw = tiny_inputs(seed + 2, N_VAL)
+    raw = tiny_inputs(seed, n)
     keys = ("points", "labels", "valid", "proj_matrix", "image", "img_h", "img_w")
     reader = lambda i: {k: a[i] for k, a in zip(keys, raw)}
     cfg = tiny_cfg()
     sensor = {k: getattr(cfg, k) for k in ("canvas_h", "canvas_w", "proj_h", "proj_w",
                                            "proj_ht", "proj_wt", "h_pad", "w_pad", "n_points")}
-    opts = Options(config={"sensor": sensor}, batch_size=(ROWS, VAL_BS), n_threads=2)
-    trainer = Trainer(opts, tiny_model(torch.float32), reader, N_VAL, reader, N_VAL,
-                      torch.device("cpu"), [0.0] + [1.0] * 19, mesh=mesh)
+    opts = Options(config={"sensor": sensor, **(config or {})}, batch_size=(ROWS, VAL_BS),
+                   n_threads=2, **options)
+    return Trainer(opts, tiny_model(torch.float32).to(device), reader, n, reader, n, device,
+                   [0.0] + [1.0] * 19, mesh=mesh)
+
+
+def validation(seed: int = 0, mesh=None) -> dict:
+    """The Trainer's validation pass over N_VAL in-memory scans in batches
+    of VAL_BS (float32), under `mesh`: its confusion matrices and batch
+    count."""
+    trainer = tiny_trainer(N_VAL, seed + 2, mesh=mesh)
     trainer.run(0, "Validation")
     return {"conf": trainer.metrics.conf, "conf_cam": trainer.metrics_img.conf,
             "batches": trainer.n_batches("Validation")}
@@ -423,6 +433,51 @@ def spatial_job(rank: int, join, seed: int, cli_argv=None) -> dict:
 
         sys.modules["torch.utils.tensorboard"] = None     # it pulls in TensorFlow here
         out["cli"] = train_cli.main(cli_argv)
+    return out if mesh.model_index == 0 else None
+
+
+@contextlib.contextmanager
+def backward_on_a_thread():
+    """Every `Tensor.backward` inside runs on a thread of its own, whose
+    context holds none of the caller's context variables (the row split in
+    force): so autograd runs a card's backward pass, on its device thread,
+    and a recomputation in it must put the split in force itself."""
+    import threading
+
+    backward = torch.Tensor.backward
+
+    def on_a_thread(*args, **kwargs):
+        error = []
+
+        def run():
+            try:
+                backward(*args, **kwargs)
+            except BaseException as e:
+                error.append(e)
+
+        thread = threading.Thread(target=run)
+        thread.start()
+        thread.join()
+        if error:
+            raise error[0]
+
+    torch.Tensor.backward = on_a_thread
+    try:
+        yield
+    finally:
+        torch.Tensor.backward = backward
+
+
+def remat_job(rank: int, join, seed: int = 0) -> dict:
+    """The PMF train step (`train_step`, float64) on a (data, model) grid
+    without and with `remat`, the backward passes on a thread of their own
+    (`backward_on_a_thread`): each returned by its data group's model rank
+    0."""
+    mesh = join()
+    d = mesh.data_index
+    with backward_on_a_thread():
+        out = {remat: train_step(slice(d * ROWS, (d + 1) * ROWS), ROWS * mesh.data, seed,
+                                 mesh=mesh, remat=remat) for remat in (False, True)}
     return out if mesh.model_index == 0 else None
 
 

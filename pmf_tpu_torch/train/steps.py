@@ -102,17 +102,21 @@ def _confusions(aux, lidar_pred, camera_pred, label, nclasses, valid=None):
     return aux
 
 
-def make_pmf_train_step(model, optimizer, cfg: LossConfig, mt_sigma=None):
+def make_pmf_train_step(model, optimizer, cfg: LossConfig, mt_sigma=None, remat: bool = False):
     """step(feature [B, H, W, 8], label [B, H, W], generator, points=None)
     → aux: forward in train mode (dropout from `generator`), the losses,
     backward, one optimizer update (of `mt_sigma` too, with cfg.use_mtloss,
     when the optimizer holds it); aux holds the detached loss terms and the
-    [C, C] confusion matrices of both streams, on the batch's device."""
+    [C, C] confusion matrices of both streams, on the batch's device. With
+    `remat` the model's stages are recomputed in the backward pass instead
+    of kept (less memory, about one more forward of time; the same
+    numbers)."""
 
     def step(feature, label, generator=None, points=None):
         model.train()
         optimizer.zero_grad()
-        lidar_pred, camera_pred = model(feature[..., 0:5], feature[..., 5:8], generator)
+        lidar_pred, camera_pred = model(feature[..., 0:5], feature[..., 5:8], generator,
+                                        remat=remat)
         total, aux = pmf_losses(lidar_pred, camera_pred, label, cfg, points, mt_sigma)
         total.backward()
         average_gradients(model.parameters())

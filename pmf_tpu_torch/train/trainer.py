@@ -187,7 +187,8 @@ class Trainer:
                                              extra=[self.mt_sigma] if use_mtloss else [],
                                              amsgrad=self.is_sensat)
             self.train_step = make_pmf_train_step(model, self.optimizer, self.loss_cfg,
-                                                  self.mt_sigma)
+                                                  self.mt_sigma,
+                                                  remat=bool(opts.config.get("remat")))
             self.eval_step = make_pmf_eval_step(model, self.loss_cfg, self.mt_sigma)
         ignore = [cl for cl, a in enumerate(alpha) if a == 0]
         self.metrics = IOUEval(opts.nclasses, ignore=ignore)
@@ -358,7 +359,10 @@ class Trainer:
         stream's ImgAcc, ImgIOU, ImgRecall, the mean of each loss term, and
         the epoch's wall time over its Steps split into the seconds spent
         waiting for the loader's batches (DataTime) and the rest
-        (StepTime). DT in the log lines is that wait alone."""
+        (StepTime). DT in the log lines is that wait alone. With the
+        config's `profile_dir`, train iterations 2-4 of epoch 0 (each under
+        the label "Train iteration {i}") are traced into it (`_profiler`),
+        as pmf_tpu's trainer traces them with jax.profiler."""
         train = mode == "Train"
         self.metrics.reset()
         self.metrics_img.reset()
@@ -367,34 +371,42 @@ class Trainer:
         pending: list = []
         loss = float("nan")
         data_s, steps = 0.0, 0
+        profile_dir = self.opts.config.get("profile_dir") if train and epoch == 0 else None
         t_start = t_epoch = time.time()
-        for i, batch in enumerate(self.batches(mode, epoch)):
-            t_proc = time.time()
-            pending.append((self._step(batch, train), self._n_real(mode, i)))
-            data_t, proc_t = t_proc - t_start, time.time() - t_proc
-            data_s, steps = data_s + data_t, steps + 1
-            self.remain_time.update(data_t + proc_t, mode)
-            if i % 10 == 0 or i == total_iter - 1:
-                loss = self._drain(pending, loss_meter, aux_meters)
-                rt = datetime.timedelta(seconds=int(
-                    self.remain_time.getRemainTime(epoch, i, total_iter, mode)))
-                line = (f">>> {mode} E[{self.opts.n_epochs:03d}|{epoch + 1:03d}] "
-                        f"I[{total_iter:04d}|{i + 1:04d}] DT[{data_t:.3f}] PT[{proc_t:.3f}] "
-                        f"LR {self.optimizer.lr:.5f} Loss {loss:.4f} "
-                        f"Acc {self.metrics.getAcc()[0]:.4f} IOU {self.metrics.getIoU()[0]:.4f} "
-                        f"Recall {self.metrics.getRecall()[0]:.4f}")
-                if "entropy" in aux_meters:
-                    line += f" Entropy {aux_meters['entropy'].avg:.4f}"
-                if not self.is_range:
-                    line += (f" ImgAcc {self.metrics_img.getAcc()[0]:.4f} "
-                             f"ImgIOU {self.metrics_img.getIoU()[0]:.4f} "
-                             f"ImgRecall {self.metrics_img.getRecall()[0]:.4f}")
-                if "entropy_cam" in aux_meters:
-                    line += f" ImgEntropy {aux_meters['entropy_cam'].avg:.4f}"
-                log.info(f"{line} RT {rt}")
-            if self.opts.is_debug:
-                break
-            t_start = time.time()
+        with contextlib.ExitStack() as trace:
+            for i, batch in enumerate(self.batches(mode, epoch)):
+                if profile_dir and i == 2:
+                    trace.enter_context(self._profiler(profile_dir))
+                t_proc = time.time()
+                with torch.profiler.record_function(f"{mode} iteration {i}"):
+                    pending.append((self._step(batch, train), self._n_real(mode, i)))
+                data_t, proc_t = t_proc - t_start, time.time() - t_proc
+                data_s, steps = data_s + data_t, steps + 1
+                self.remain_time.update(data_t + proc_t, mode)
+                if i % 10 == 0 or i == total_iter - 1:
+                    loss = self._drain(pending, loss_meter, aux_meters)
+                    rt = datetime.timedelta(seconds=int(
+                        self.remain_time.getRemainTime(epoch, i, total_iter, mode)))
+                    line = (f">>> {mode} E[{self.opts.n_epochs:03d}|{epoch + 1:03d}] "
+                            f"I[{total_iter:04d}|{i + 1:04d}] DT[{data_t:.3f}] PT[{proc_t:.3f}] "
+                            f"LR {self.optimizer.lr:.5f} Loss {loss:.4f} "
+                            f"Acc {self.metrics.getAcc()[0]:.4f} "
+                            f"IOU {self.metrics.getIoU()[0]:.4f} "
+                            f"Recall {self.metrics.getRecall()[0]:.4f}")
+                    if "entropy" in aux_meters:
+                        line += f" Entropy {aux_meters['entropy'].avg:.4f}"
+                    if not self.is_range:
+                        line += (f" ImgAcc {self.metrics_img.getAcc()[0]:.4f} "
+                                 f"ImgIOU {self.metrics_img.getIoU()[0]:.4f} "
+                                 f"ImgRecall {self.metrics_img.getRecall()[0]:.4f}")
+                    if "entropy_cam" in aux_meters:
+                        line += f" ImgEntropy {aux_meters['entropy_cam'].avg:.4f}"
+                    log.info(f"{line} RT {rt}")
+                if i == 4:
+                    trace.close()
+                if self.opts.is_debug:
+                    break
+                t_start = time.time()
         self._drain(pending, loss_meter, aux_meters)
         wall = time.time() - t_epoch
         out = {"Acc": float(self.metrics.getAcc()[0]), "IOU": float(self.metrics.getIoU()[0]),
@@ -410,6 +422,18 @@ class Trainer:
         out.update(DataTime=data_s, StepTime=wall - data_s, Steps=steps)
         log.info(f"{mode} epoch {epoch}: " + " ".join(f"{k} {v:.4f}" for k, v in out.items()))
         return out
+
+    def _profiler(self, profile_dir: str):
+        """torch.profiler over the host and, on the card, its kernels, whose
+        trace goes to `profile_dir` as `{rank}.{time}.pt.trace.json`, which
+        TensorBoard's profiler plugin reads."""
+        from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        return profile(activities=activities, on_trace_ready=tensorboard_trace_handler(
+            profile_dir, worker_name=str(world()[0])))
 
     def _record_scalars(self, mode: str, epoch: int, loss: float, aux_meters: dict):
         """The epoch's means under pmf_tpu's tags: {mode}_{Loss, meanAcc,
