@@ -139,7 +139,12 @@ Phases, each of which ends the run with a non-zero exit on failure:
      utils/flops.py's count of the PMF eval batch and train step, and the
      MFU of phase 5's and 6(c)'s rates against the bf16 peak; (e) the
      Trainer's `profile_dir` trace: one file, train iterations 2-4, CUDA
-     kernel events.
+     kernel events;
+ 14. the bench (`python -m pmf_tpu_torch.tools.bench`) in a fresh process:
+     its four phases (the cells pmf_r34_kitti_eval_b8 and
+     pmf_r34_kitti_train_b8, and EPMF eval and train) at a short length (2
+     repeats of 2 timed calls), every gate passing, and each phase's line
+     parsed with every field set.
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Without a CUDA card the script exits 1 and
@@ -157,6 +162,8 @@ import time
 
 import numpy as np
 import torch
+
+from pmf_tpu_torch.utils.timing import card_name, keys_numbers, rasterize_numbers
 
 H, W, B, N, F = 384, 1232, 8, 32768, 6
 TH, TW = 256, 1024          # the train view (bench.py:67, pmf_kitti.yaml proj_ht/proj_wt)
@@ -180,63 +187,11 @@ SCALES = (320, 448, 576)    # infer_sensat's default window sizes
 # the train CLI on files (phase 11): scans of sequences 00 (train) and 08 (validation), and
 # KITTI's image size
 KT, KV, KH, KW = 80, 16, 376, 1241
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
-F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 
 
 def fail(msg: str):
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
-
-
-def time_ms(fn, iters: int = 20, repeats: int = 5, warmup: int = 3) -> float:
-    """Host-inclusive time of one call of `fn`: CUDA events around `iters`
-    calls in a row, divided by the count (a call timed alone on an idle card
-    would also count the host's time to enqueue it); the median of
-    `repeats`. Where the host's work per call exceeds the device's, this is
-    the host's rate."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    runs = []
-    for _ in range(repeats):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        end.synchronize()
-        runs.append(start.elapsed_time(end) / iters)
-    return statistics.median(runs)
-
-
-def device_ms(fn, iters: int = 20, repeats: int = 5) -> float:
-    """Device time of one call of `fn`: `iters` calls captured into one CUDA
-    graph, replayed between CUDA events, divided by the count; the median of
-    `repeats` replays. The host's per-call work ran once, at capture."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    runs = []
-    for _ in range(repeats):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        runs.append(start.elapsed_time(end) / iters)
-    return statistics.median(runs)
 
 
 def short_name(key: str) -> str:
@@ -278,12 +233,6 @@ def trace(name: str, fn, smi: str, iters: int = 20) -> None:
         print(f"[trace]   device {t:9.3f} us/call  x{n:g}  {k}")
     for t, k in cpu:
         print(f"[trace]   host   {t:9.3f} us/call (profiled)  {k}")
-
-
-def bound_ms(n_bytes: float, n_ops: float):
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def force_ties(rows, cols, depth, keep, seed: int, h: int = H):
@@ -363,65 +312,6 @@ def hold_keys(label: str, pix, key, h: int = H, w: int = W):
     print(f"[kernels] zbuffer_keys == plain ({label}) at B={b} N={n} {h}x{w}: "
           f"{int((got != zbuffer.IMAX).sum())} occupied pixels")
     return float((got.long() - want.long()).abs().max().item())
-
-
-def rasterize_numbers(rows, cols, depth, keep, vals, h: int, w: int) -> dict:
-    """K2's times on these inputs (host-inclusive and on the device), its
-    plain version's and the library call's (`scatter_reduce_` "amin" of the
-    64-bit (dq << 32) | index keys, then a gather of the winners' rows,
-    checked to compute the same function), and its bound."""
-    from pmf_tpu_torch.ops import rasterize
-
-    b, n = rows.shape
-    dev = rows.device
-    args = (rows, cols, depth, keep, vals, h, w)
-    pix64 = torch.where(keep, rows.clamp(0, h - 1).long() * w + cols.clamp(0, w - 1).long(), h * w)
-    idx = torch.arange(n, device=dev)
-
-    def library_rasterize():
-        dq = (depth / (1 / 64)).clamp(0, 65535).long()
-        best = torch.full((b, h * w + 1), 2**63 - 1, dtype=torch.int64, device=dev)
-        best.scatter_reduce_(1, pix64, (dq << 32) | idx, "amin")
-        hit = best[:, :h * w] != 2**63 - 1
-        win = (best[:, :h * w] & 0xFFFFFFFF).clamp(max=n - 1)
-        rows_ = vals.gather(1, win[..., None].expand(-1, -1, F))
-        return torch.where(hit[..., None], rows_, 0.0), hit
-
-    lib_c, lib_m = library_rasterize()
-    want_c, want_m = rasterize.rasterize_zbuffer_plain(*args)
-    if not (torch.equal(lib_c.reshape(want_c.shape), want_c)
-            and torch.equal(lib_m.reshape(want_m.shape), want_m)):
-        fail("the library yardstick for rasterize_zbuffer computes another function")
-    bnd, by = bound_ms(b * n * (4 + 4 + 4 + 1 + 4 * F) + b * h * w * (4 * F + 1),
-                       int(keep.sum()) + b * h * w * F)
-    return {"ms": time_ms(lambda: rasterize.rasterize_zbuffer(*args)),
-            "device_ms": device_ms(lambda: rasterize.rasterize_zbuffer(*args)),
-            "plain_ms": time_ms(lambda: rasterize.rasterize_zbuffer_plain(*args), iters=5),
-            "bound_ms": bnd, "bound_by": by, "library_ms": time_ms(library_rasterize)}
-
-
-def keys_numbers(pix, key, h: int, w: int, kept: int):
-    """K1's times on these keys ([B, N]: one scan, or a batch), its plain
-    version's and the library call's (`full` + `scatter_reduce_` "amin",
-    checked to compute the same function), and its bound (`kept` atomics);
-    and the library call itself."""
-    from pmf_tpu_torch.ops import zbuffer
-
-    pix64 = pix.long()
-    b = pix.shape[0]
-
-    def library_keys():
-        out = torch.full((b, h * w + 1), zbuffer.IMAX, dtype=torch.int32, device=pix.device)
-        return out.scatter_reduce_(1, pix64, key, "amin")
-
-    if not torch.equal(library_keys()[:, :h * w].reshape(b, h, w),
-                       zbuffer.zbuffer_keys_plain(pix, key, h, w)):
-        fail("the library yardstick for zbuffer_keys computes another function")
-    bnd, by = bound_ms(pix.numel() * 8 + b * h * w * 4, kept)
-    return {"ms": time_ms(lambda: zbuffer.zbuffer_keys(pix, key, h, w)),
-            "device_ms": device_ms(lambda: zbuffer.zbuffer_keys(pix, key, h, w)),
-            "plain_ms": time_ms(lambda: zbuffer.zbuffer_keys_plain(pix, key, h, w)),
-            "bound_ms": bnd, "bound_by": by, "library_ms": time_ms(library_keys)}, library_keys
 
 
 def print_numbers(name: str, e: dict, smi: str, prefix: str = ""):
@@ -2713,12 +2603,50 @@ def remat_phase(dev, smi, timing: dict, split: dict) -> None:
           "not included)")
 
 
+def bench_phase(smi) -> None:
+    """Phase 14: the bench's four phases at a short length in a fresh
+    process (the card's memory that this one caches is given back first):
+    it must exit 0, having passed every gate, and print one line a phase
+    with every field of the phase set (the cell is null on the EPMF phases,
+    and the profiler's fields only where the trace held no device time)."""
+    from pmf_tpu_torch.tools import bench
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "pmf_tpu_torch.tools.bench", "--phase",
+                           *bench.PHASES, "--iters", "2", "--repeats", "2"],
+                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                          text=True, timeout=400)
+    if proc.returncode:
+        fail(f"[bench] the bench exited {proc.returncode}:\n{proc.stdout[-2000:]}"
+             f"{proc.stderr[-4000:]}")
+    lines = {}
+    for text in proc.stdout.splitlines():
+        line = json.loads(text)
+        lines[line["phase"]] = line
+    for name, phase in bench.PHASES.items():
+        line = lines.get(name)
+        if line is None or list(line) != list(phase.fields()):
+            fail(f"[bench] no line of phase {name}, or another set of fields: {line}")
+        unset = [k for k, v in line.items() if v is None and not (
+            k == "cell" or line["profiler"] != "torch.profiler"
+            and k in ("idle_share", "busy_ms", "top_ops"))]
+        if unset:
+            fail(f"[bench] {name}: fields unset on the card: {unset}")
+        kernels_ = ", ".join(f"{k} {line[k + '_device_ms']:.5g} ms device (bound share "
+                             f"{line[k + '_bound_share']:.3f}, {line[k + '_launches']:g} a call)"
+                             for k in bench.KERNELS)
+        print(f"[bench] {name}: {line['value']:.2f} scans/s (spread {line['spread']:.3f} over "
+              f"{line['repeats']}x{line['iters']} calls), {line[phase.flops_key]:.2f} GFLOP/scan, "
+              f"MFU {line['mfu_' + name]:.4f}, peak {line[name + '_peak_mem_gib']:.2f} GiB, idle "
+              f"share {line['idle_share']}, {kernels_}; gates {json.dumps(line['gates'])} on {smi}")
+    print(f"[bench] phase 14 {time.perf_counter() - t0:.1f} s (a fresh process)")
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA card")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60).stdout.strip().splitlines()[0]
+    smi = card_name()
     print(smi)
     print(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
@@ -2783,10 +2711,13 @@ def main():
     launches_split, split = split_phase(dev, smi)
     t_remat = time.perf_counter()
     remat_phase(dev, smi, timing, split)
+    t_bench = time.perf_counter()
+    bench_phase(smi)
     print(f"[time] phases 1-7 {t_range - t_run:.1f} s, phase 8 {t_nusc - t_range:.1f} s, phase 9 "
           f"{t_a2d2 - t_nusc:.1f} s, phase 10 {t_cli - t_a2d2:.1f} s, phase 11 "
           f"{t_split - t_cli:.1f} s, phase 12 {t_remat - t_split:.1f} s, phase 13 "
-          f"{time.perf_counter() - t_remat:.1f} s (the build included in phase 2)")
+          f"{t_bench - t_remat:.1f} s, phase 14 {time.perf_counter() - t_bench:.1f} s (the build "
+          "included in phase 2)")
     range_keys = ("range_max_abs_err", "range_ms", "range_device_ms", "range_plain_ms",
                   "range_bound_ms", "range_bound_by", "range_library_ms")
     for e in entries:

@@ -75,8 +75,12 @@ def _upsample_bilinear_backward(grad_out_shape, _output_size, input_size, *_args
     return _resize(*input_size, *grad_out_shape[2:])
 
 
+# F.interpolate reaches the `vec` overload; under torch.inference_mode no
+# autograd layer turns it into the default one first, and FlopCounterMode
+# would decompose it into ops that count nothing
 _RULES = {aten.convolution_backward: _conv_backward,
           aten.upsample_bilinear2d: _upsample_bilinear,
+          aten.upsample_bilinear2d.vec: _upsample_bilinear,
           aten.upsample_bilinear2d_backward: _upsample_bilinear_backward}
 
 

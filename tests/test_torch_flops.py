@@ -75,6 +75,8 @@ def test_dense_and_resize_counts():
     img = torch.zeros(1, 2, 4, 6, requires_grad=True)
     up = lambda: F.interpolate(img, scale_factor=2, mode="bilinear", align_corners=False)
     assert count_flops(up) == 2688
+    with torch.inference_mode():
+        assert count_flops(up) == 2688
     assert count_flops(lambda: up().sum().backward()) == 2 * 2688
     resize = lambda a: jax.image.resize(a, (1, 8, 12, 2), method="bilinear")
     assert jflops.count_flops(resize, jnp.zeros((1, 4, 6, 2))) == 2688
