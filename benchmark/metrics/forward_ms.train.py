@@ -1,0 +1,5 @@
+"""The train-mode forward's mean time a step (CUDA events), ms."""
+
+
+def read(t: dict):
+    return t["spans"].get("forward")
