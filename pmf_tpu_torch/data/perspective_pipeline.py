@@ -35,6 +35,7 @@ from ..ops.rasterize import rasterize_zbuffer
 from ..ops.scatter import fill_canvas, point_winner_flags, zbuffer_scatter_packed
 from ..ops.zbuffer import zbuffer_keys
 from ..parallel import rand_rows
+from ..utils.spans import span
 from .augment import AugmentConfig, PointAugParams, augment_pointcloud, draw_point_aug
 from .jitter import color_jitter_fixed, jitter_params
 
@@ -320,8 +321,9 @@ def build_batch(points, labels, valid, proj_matrix, images, img_h, img_w,
     gives each point's flat pixel (H*W when not kept) and whether it won
     that pixel, for the point-domain Lovász loss.
     """
-    return _build_batch(points, labels, valid, proj_matrix, images, img_h, img_w, cfg,
-                        train, generator, aug_override, return_points)
+    with span("pmf.view"):
+        return _build_batch(points, labels, valid, proj_matrix, images, img_h, img_w, cfg,
+                            train, generator, aug_override, return_points)
 
 
 def _build_batch(points, labels, valid, proj_matrix, images, img_h, img_w,
@@ -380,6 +382,7 @@ def build_eval_sample_with_uproj(points, labels, valid, proj_matrix, image,
     Returns (feature [H, W, 8] normalized, mask, label2d, rows, cols, keep,
     depth); rows/cols are the points' integer pixel coords in the view.
     """
-    geometry = view_geometry(points[None], labels[None], valid[None], proj_matrix[None],
-                             image[None], *scan_sizes(img_h, img_w, points.device), cfg)
-    return fill_scan([t[0] for t in geometry], cfg.proj_h, cfg.proj_w, cfg)
+    with span("pmf.view"):
+        geometry = view_geometry(points[None], labels[None], valid[None], proj_matrix[None],
+                                 image[None], *scan_sizes(img_h, img_w, points.device), cfg)
+        return fill_scan([t[0] for t in geometry], cfg.proj_h, cfg.proj_w, cfg)

@@ -33,6 +33,7 @@ from ..ops.projection import cam_frame_crop_project, yaw_crop_project
 from ..ops.rasterize import rasterize_zbuffer
 from ..ops.zbuffer import zbuffer_keys
 from ..parallel import rand_rows
+from ..utils.spans import span
 from .augment import AugmentConfig, PointAugParams, draw_point_aug
 from .jitter import color_jitter_fixed, jitter_params
 from .perspective_pipeline import (PVConfig, _round_to_int32, augmented_points, fill_scan,
@@ -274,8 +275,9 @@ def build_v2_batch(points, labels, valid, proj_matrix, images, img_h, img_w, cfg
     default the config's pair for every scan. With return_points a fourth
     element (pt_pix, pt_label, pt_won) [B, N], as `build_batch` gives it,
     from K1."""
-    return _build_v2_batch(points, labels, valid, proj_matrix, images, img_h, img_w, cfg,
-                           train, generator, aug_override, return_points, fovs=fovs)
+    with span("pmf.view"):
+        return _build_v2_batch(points, labels, valid, proj_matrix, images, img_h, img_w, cfg,
+                               train, generator, aug_override, return_points, fovs=fovs)
 
 
 def build_v2_batch_pix(points, labels, valid, rows, cols, images, img_h, img_w,
@@ -285,8 +287,9 @@ def build_v2_batch_pix(points, labels, valid, rows, cols, images, img_h, img_w,
     """`build_v2_batch` over the points' own pixels rows/cols [B, N] int32
     (A2D2's stored indices) in place of a projection: the tight box spans
     every valid point, as in pmf_tpu (no image-bound test)."""
-    return _build_v2_batch(points, labels, valid, None, images, img_h, img_w, cfg, train,
-                           generator, aug_override, return_points, pix=(rows, cols))
+    with span("pmf.view"):
+        return _build_v2_batch(points, labels, valid, None, images, img_h, img_w, cfg, train,
+                               generator, aug_override, return_points, pix=(rows, cols))
 
 
 def _build_v2_batch(points, labels, valid, proj_matrix, images, img_h, img_w, cfg: V2Config,
@@ -306,6 +309,7 @@ def build_v2_eval_sample_with_uproj(points, labels, valid, proj_matrix, image, i
                                     cfg: V2Config):
     """The per-scan eval path (K1 and a gather), keeping each point's place:
     (feature [H, W, 8] normalized, mask, label2d, rows, cols, keep, depth)."""
-    geometry = v2_view_geometry(points[None], labels[None], valid[None], proj_matrix[None],
-                                image[None], *scan_sizes(img_h, img_w, points.device), cfg)
-    return fill_scan([t[0] for t in geometry], cfg.proj_h, cfg.proj_w, cfg)
+    with span("pmf.view"):
+        geometry = v2_view_geometry(points[None], labels[None], valid[None], proj_matrix[None],
+                                    image[None], *scan_sizes(img_h, img_w, points.device), cfg)
+        return fill_scan([t[0] for t in geometry], cfg.proj_h, cfg.proj_w, cfg)

@@ -27,6 +27,7 @@ from torch import nn
 
 from ..ops.resize import PixelShuffle
 from ..parallel import spatial
+from ..utils.spans import span
 from .layers import BatchNorm2d, Conv2d, leaky_relu, remat_stage
 from .pmf import ASPP, LeakyReLU, ResidualBasedFusionBlock, RGBDecoder
 from .resnet import ResNetEncoder
@@ -129,29 +130,38 @@ class SalsaNextFusionV2(nn.Module):
     def down(self, i: int, x, img, dtype: torch.dtype, generator=None):
         """fusionblock_{i} and resBlock{i} after it, in `dtype`: (pooled
         output, skip)."""
-        fused = getattr(self, f"fusionblock_{i}")(x, img)
-        return getattr(self, f"resBlock{i}")(fused.to(dtype), generator)
+        with span("pmf.model.lidar_stream.fusion"):
+            fused = getattr(self, f"fusionblock_{i}")(x, img)
+        with span("pmf.model.lidar_stream.encoder"):
+            return getattr(self, f"resBlock{i}")(fused.to(dtype), generator)
 
     def forward(self, x, img_features, generator=None, remat: bool = False):
         """With `remat` each context block, each fusion block with its
         resBlock, the bottleneck, each upBlock and the full-resolution head
-        are recomputed in the backward pass (`layers.remat_stage`)."""
+        are recomputed in the backward pass (`layers.remat_stage`). The
+        sparse context blocks, each fusion block, each resBlock, the
+        bottleneck with ASPP (the head) and the upBlocks with the
+        full-resolution logits (the decoder) are spans
+        pmf.model.lidar_stream.{context, fusion, encoder, head, decoder}."""
         g, dt = generator, x.dtype
         run = lambda fn, *args: remat_stage(remat, fn, *args, generator=g)
         c = x
-        for block in (self.downCntx, self.downCntx2, self.downCntx3):
-            c = run(block, c, dt)
+        with span("pmf.model.lidar_stream.context"):
+            for block in (self.downCntx, self.downCntx2, self.downCntx3):
+                c = run(block, c, dt)
         skips = []
         for i in range(1, 5):
             c, skip = run(lambda c, img, i=i: self.down(i, c, img, dt, g), c, img_features[i - 1])
             skips.append(skip)
-        down5c = run(lambda c: self.aspp(self.resBlock5(c, g)), c)
-        up = down5c
-        for block, skip in zip((self.upBlock1, self.upBlock2, self.upBlock3, self.upBlock4),
-                               reversed(skips)):
-            up = run(block, up, skip, g)
-        logits = run(lambda up: self.logits(self.extraUpSample(up)).float(), up)
-        return torch.softmax(logits, dim=1), down5c
+        with span("pmf.model.lidar_stream.head"):
+            down5c = run(lambda c: self.aspp(self.resBlock5(c, g)), c)
+        with span("pmf.model.lidar_stream.decoder"):
+            up = down5c
+            for block, skip in zip((self.upBlock1, self.upBlock2, self.upBlock3, self.upBlock4),
+                                   reversed(skips)):
+                up = run(block, up, skip, g)
+            logits = run(lambda up: self.logits(self.extraUpSample(up)).float(), up)
+            return torch.softmax(logits, dim=1), down5c
 
 
 class RGBDecoderV2(RGBDecoder):
@@ -166,8 +176,12 @@ class RGBDecoderV2(RGBDecoder):
         self.aspp = ASPP(in_channels[3], in_channels[3])
 
     def fuse(self, feature, lidar_feature):
-        lid = self.extraUpSample(lidar_feature)
-        return torch.cat([lid, self.aspp(feature).to(lid.dtype)], 1)
+        """The lidar bottleneck upsampled and ASPP(layer4), concatenated;
+        each a span, pmf.model.camera_decoder.{lidar_upsample, aspp}."""
+        with span("pmf.model.camera_decoder.lidar_upsample"):
+            lid = self.extraUpSample(lidar_feature)
+        with span("pmf.model.camera_decoder.aspp"):
+            return torch.cat([lid, self.aspp(feature).to(lid.dtype)], 1)
 
     def forward(self, inputs, lidar_feature, remat: bool = False):
         fuse = remat_stage(remat, self.fuse, inputs[3], lidar_feature)
@@ -184,7 +198,8 @@ class EPMFNet(nn.Module):
     statistics stay float32. In train mode the channel dropout draws its
     masks from `generator`, which forward then needs unless dropout_rate is
     0. With `remat` the stages of the three streams are recomputed in the
-    backward pass instead of kept (PMFNet's).
+    backward pass instead of kept (PMFNet's). The forward is the span
+    pmf.model with one span a stream, as PMFNet's.
     """
 
     def __init__(self, nclasses: int = 20, base_channels: int = 32,
@@ -203,9 +218,13 @@ class EPMFNet(nn.Module):
     def forward(self, pcd_feature, img_feature, generator=None, remat: bool = False):
         if spatial.height(pcd_feature, 1) % 32 or pcd_feature.shape[2] % 32:
             raise ValueError(f"EPMFNet needs sizes divisible by 32: {tuple(pcd_feature.shape)}")
-        pcd = pcd_feature.permute(0, 3, 1, 2).to(self.dtype)
-        img = img_feature.permute(0, 3, 1, 2).to(self.dtype)
-        img_feats = self.camera_stream_encoder(img, generator, remat)
-        lidar, lidar_feature = self.lidar_stream(pcd, img_feats, generator, remat)
-        camera = self.camera_stream_decoder(img_feats, lidar_feature, remat)
-        return lidar.permute(0, 2, 3, 1), camera.permute(0, 2, 3, 1)
+        with span("pmf.model"):
+            pcd = pcd_feature.permute(0, 3, 1, 2).to(self.dtype)
+            img = img_feature.permute(0, 3, 1, 2).to(self.dtype)
+            with span("pmf.model.camera_encoder"):
+                img_feats = self.camera_stream_encoder(img, generator, remat)
+            with span("pmf.model.lidar_stream"):
+                lidar, lidar_feature = self.lidar_stream(pcd, img_feats, generator, remat)
+            with span("pmf.model.camera_decoder"):
+                camera = self.camera_stream_decoder(img_feats, lidar_feature, remat)
+            return lidar.permute(0, 2, 3, 1), camera.permute(0, 2, 3, 1)

@@ -14,6 +14,7 @@ from torch import nn
 
 from ..ops.resize import upsample_bilinear
 from ..parallel import spatial
+from ..utils.spans import span
 from .layers import BatchNorm2d, Conv2d, conv_bn, leaky_relu, remat_stage
 from .resnet import ResNetEncoder
 from .salsanext import ResBlock, ResContextBlock, SalsaNext, UpBlock
@@ -98,27 +99,35 @@ class SalsaNextFusion(nn.Module):
 
     def down(self, i: int, x, img, generator=None):
         """resBlock{i} and its fusion block: (fused pooled output, skip)."""
-        down, skip = getattr(self, f"resBlock{i}")(x, generator)
-        return getattr(self, f"fusionblock_{i}")(down, img), skip
+        with span("pmf.model.lidar_stream.encoder"):
+            down, skip = getattr(self, f"resBlock{i}")(x, generator)
+        with span("pmf.model.lidar_stream.fusion"):
+            return getattr(self, f"fusionblock_{i}")(down, img), skip
 
     def forward(self, x, img_features, generator=None, remat: bool = False):
         """With `remat` each context block, each resBlock with its fusion
         block, the bottleneck and each upBlock are recomputed in the
-        backward pass (`layers.remat_stage`)."""
+        backward pass (`layers.remat_stage`). The context blocks, each
+        resBlock, each fusion block, the bottleneck with ASPP (the head)
+        and the upBlocks with the logits (the decoder) are spans
+        pmf.model.lidar_stream.{context, encoder, fusion, head, decoder}."""
         g = generator
         run = lambda fn, *args: remat_stage(remat, fn, *args, generator=g)
         c = x
-        for block in (self.downCntx, self.downCntx2, self.downCntx3):
-            c = run(block, c)
+        with span("pmf.model.lidar_stream.context"):
+            for block in (self.downCntx, self.downCntx2, self.downCntx3):
+                c = run(block, c)
         skips = []
         for i in range(1, 5):
             c, skip = run(lambda c, img, i=i: self.down(i, c, img, g), c, img_features[i - 1])
             skips.append(skip)
-        up = run(lambda c: self.aspp(self.resBlock5(c, g)), c)
-        for block, skip in zip((self.upBlock1, self.upBlock2, self.upBlock3, self.upBlock4),
-                               reversed(skips)):
-            up = run(block, up, skip, g)
-        return torch.softmax(self.logits(up).float(), dim=1)
+        with span("pmf.model.lidar_stream.head"):
+            up = run(lambda c: self.aspp(self.resBlock5(c, g)), c)
+        with span("pmf.model.lidar_stream.decoder"):
+            for block, skip in zip((self.upBlock1, self.upBlock2, self.upBlock3, self.upBlock4),
+                                   reversed(skips)):
+                up = run(block, up, skip, g)
+            return torch.softmax(self.logits(up).float(), dim=1)
 
 
 class RGBDecoder(nn.Module):
@@ -174,12 +183,18 @@ class PMFNet(nn.Module):
                                             dropout_rate=dropout_rate)
 
     def forward(self, pcd_feature, img_feature, generator=None, remat: bool = False):
-        pcd = pcd_feature.permute(0, 3, 1, 2).to(self.dtype)
-        img = img_feature.permute(0, 3, 1, 2).to(self.dtype)
-        img_feats = self.camera_stream_encoder(img, generator, remat)
-        lidar = self.lidar_stream(pcd, img_feats, generator, remat)
-        camera = self.camera_stream_decoder(img_feats, remat)
-        return lidar.permute(0, 2, 3, 1), camera.permute(0, 2, 3, 1)
+        """The forward is the span pmf.model, holding one span a stream:
+        pmf.model.camera_encoder, .lidar_stream, .camera_decoder."""
+        with span("pmf.model"):
+            pcd = pcd_feature.permute(0, 3, 1, 2).to(self.dtype)
+            img = img_feature.permute(0, 3, 1, 2).to(self.dtype)
+            with span("pmf.model.camera_encoder"):
+                img_feats = self.camera_stream_encoder(img, generator, remat)
+            with span("pmf.model.lidar_stream"):
+                lidar = self.lidar_stream(pcd, img_feats, generator, remat)
+            with span("pmf.model.camera_decoder"):
+                camera = self.camera_stream_decoder(img_feats, remat)
+            return lidar.permute(0, 2, 3, 1), camera.permute(0, 2, 3, 1)
 
 
 def build_model(opts) -> nn.Module:

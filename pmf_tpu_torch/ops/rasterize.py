@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.spans import span
 from . import kernels
 from .scatter import flat_pixels
 
@@ -49,26 +50,28 @@ def rasterize_zbuffer_plain(rows, cols, depth, keep, values, H: int, W: int,
 def rasterize_zbuffer(rows, cols, depth, keep, values, H: int, W: int,
                       depth_quant: float = 1.0 / 64.0):
     """`rasterize_zbuffer_plain` on the CPU; on CUDA tensors, one call of
-    the K2 kernels for the whole batch (it raises rather than fall back)."""
-    if values.is_cpu:
-        return rasterize_zbuffer_plain(rows, cols, depth, keep, values, H, W,
-                                       depth_quant)
-    B, N, F = values.shape
-    dev = values.device
-    for t, name, dtype in ((rows, "rows", torch.int32), (cols, "cols", torch.int32),
-                           (depth, "depth", torch.float32), (keep, "keep", torch.bool)):
-        kernels.check(t, name, dtype, (B, N), dev)
-    kernels.check(values, "values", torch.float32, (B, N, F), dev)
-    canvas = values.new_empty((B, H, W, F))
-    mask = torch.empty((B, H, W), dtype=torch.bool, device=dev)
-    # scratch for the key image: 8 B a pixel holds the 32- or 64-bit keys
-    # that the C entry picks by N
-    keys = torch.empty((B, H * W), dtype=torch.int64, device=dev)
-    kernels.launch("pmf_rasterize_zbuffer", dev, rows.data_ptr(), cols.data_ptr(),
-                   depth.data_ptr(), keep.data_ptr(), values.data_ptr(), keys.data_ptr(),
-                   canvas.data_ptr(), mask.data_ptr(), B, N, H, W, F, depth_quant)
-    rasterize_zbuffer.launches += 1
-    return canvas, mask
+    the K2 kernels for the whole batch (it raises rather than fall back).
+    The whole call is the span pmf.k2 (`utils/spans.py`)."""
+    with span("pmf.k2"):
+        if values.is_cpu:
+            return rasterize_zbuffer_plain(rows, cols, depth, keep, values, H, W,
+                                           depth_quant)
+        B, N, F = values.shape
+        dev = values.device
+        for t, name, dtype in ((rows, "rows", torch.int32), (cols, "cols", torch.int32),
+                               (depth, "depth", torch.float32), (keep, "keep", torch.bool)):
+            kernels.check(t, name, dtype, (B, N), dev)
+        kernels.check(values, "values", torch.float32, (B, N, F), dev)
+        canvas = values.new_empty((B, H, W, F))
+        mask = torch.empty((B, H, W), dtype=torch.bool, device=dev)
+        # scratch for the key image: 8 B a pixel holds the 32- or 64-bit keys
+        # that the C entry picks by N
+        keys = torch.empty((B, H * W), dtype=torch.int64, device=dev)
+        kernels.launch("pmf_rasterize_zbuffer", dev, rows.data_ptr(), cols.data_ptr(),
+                       depth.data_ptr(), keep.data_ptr(), values.data_ptr(), keys.data_ptr(),
+                       canvas.data_ptr(), mask.data_ptr(), B, N, H, W, F, depth_quant)
+        rasterize_zbuffer.launches += 1
+        return canvas, mask
 
 
 rasterize_zbuffer.launches = 0

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.spans import span
 from . import kernels
 
 IMAX = 2**31 - 1
@@ -37,17 +38,19 @@ def zbuffer_keys(pix: torch.Tensor, key: torch.Tensor, H: int,
     """`zbuffer_keys_plain` on the CPU; on CUDA tensors, one launch of the
     K1 kernel for the whole batch (it raises rather than fall back). The
     launch is short on the device, so the host's work per call is kept to
-    the input checks, one allocation and one C call."""
-    if pix.is_cpu:
-        return zbuffer_keys_plain(pix, key, H, W)
-    B, N = pix.shape
-    for t, name in ((pix, "pix"), (key, "key")):
-        kernels.check(t, name, torch.int32, (B, N), pix.device)
-    out = pix.new_empty((B, H, W))
-    kernels.launch("pmf_zbuffer_keys", pix.device, pix.data_ptr(), key.data_ptr(),
-                   out.data_ptr(), B, N, H * W)
-    zbuffer_keys.launches += 1
-    return out
+    the input checks, one allocation and one C call. The whole call is the
+    span pmf.k1 (`utils/spans.py`)."""
+    with span("pmf.k1"):
+        if pix.is_cpu:
+            return zbuffer_keys_plain(pix, key, H, W)
+        B, N = pix.shape
+        for t, name in ((pix, "pix"), (key, "key")):
+            kernels.check(t, name, torch.int32, (B, N), pix.device)
+        out = pix.new_empty((B, H, W))
+        kernels.launch("pmf_zbuffer_keys", pix.device, pix.data_ptr(), key.data_ptr(),
+                       out.data_ptr(), B, N, H * W)
+        zbuffer_keys.launches += 1
+        return out
 
 
 zbuffer_keys.launches = 0

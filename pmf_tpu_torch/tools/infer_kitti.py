@@ -35,6 +35,7 @@ from ..metrics import IOUEval
 from ..models import build_model, load_weights
 from ..ops import argmax_last, knn_postprocess
 from ..utils import disable_tf32, resolve_device
+from ..utils.spans import span
 from ..utils.tables import latex_row, matrix_report, per_class_report
 
 log = logging.getLogger(__name__)
@@ -78,50 +79,55 @@ class Inference:
         return cls(opts, model, kitti_sample_reader(dataset, view_config(opts)),
                    len(dataset), device, ignore, use_knn, save_preds, dataset)
 
-    def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
     @torch.inference_mode()
     def run(self, max_scans: int = -1) -> dict:
+        """Score `max_scans` scans (all with -1). Each scan is a span
+        (`utils/spans.py`), pmf.scan, holding its parts; `ms_per_scan` is
+        the loop's wall time a scan, from asking the reader for it to the
+        end of its IoU update (each scan ends in read-backs that wait for
+        the card, so no synchronize is added)."""
         n = self.n_scans if max_scans < 0 else min(max_scans, self.n_scans)
         cfg = self.pv_cfg
         t_total = 0.0
         for i in range(n):
-            s = self.reader(i)
-            dev = lambda k: torch.as_tensor(s[k], device=self.device)
-            points = dev("points")
-            f, m, l2d, rows, cols, keep, _ = self.build(
-                points, dev("labels"), dev("valid"), dev("proj_matrix"),
-                dev("image"), int(s["img_h"]), int(s["img_w"]), cfg)
-            self._sync()
-            t0 = time.perf_counter()
-            probs = self.model(f[None, ..., :5], f[None, ..., 5:8])[0][0]
-            argmax = argmax_last(probs)
-            if self.use_knn:
-                # the depth plane for KNN: the projected depth channel denormalized
-                proj_depth = (f[..., 0] * cfg.img_stds[0] + cfg.img_mean[0]) * m
-                proj_range = torch.where(m, proj_depth, -1.0)
-                point_pred = knn_postprocess(
-                    proj_range, point_depth(points), argmax, cols, rows, valid=keep,
-                    nclasses=self.opts.nclasses, **self.knn_params)
-            else:
-                point_pred = argmax[rows.clamp(0, cfg.proj_h - 1).long(),
-                                    cols.clamp(0, cfg.proj_w - 1).long()]
-                point_pred = torch.where(keep, point_pred, 0)
-            point_pred = point_pred.cpu().numpy()
-            t_total += time.perf_counter() - t0
+            with span("pmf.scan"):
+                t0 = time.perf_counter()
+                with span("pmf.scan.read"):
+                    s = self.reader(i)
+                with span("pmf.scan.h2d"):
+                    inputs = [torch.as_tensor(s[k], device=self.device)
+                              for k in ("points", "labels", "valid", "proj_matrix", "image")]
+                f, m, l2d, rows, cols, keep, _ = self.build(
+                    *inputs, int(s["img_h"]), int(s["img_w"]), cfg)
+                probs = self.model(f[None, ..., :5], f[None, ..., 5:8])[0][0]
+                with span("pmf.scan.lift"):
+                    argmax = argmax_last(probs)
+                    if self.use_knn:
+                        # the depth plane for KNN: the projected depth channel denormalized
+                        proj_depth = (f[..., 0] * cfg.img_stds[0] + cfg.img_mean[0]) * m
+                        proj_range = torch.where(m, proj_depth, -1.0)
+                        point_pred = knn_postprocess(
+                            proj_range, point_depth(inputs[0]), argmax, cols, rows, valid=keep,
+                            nclasses=self.opts.nclasses, **self.knn_params)
+                    else:
+                        point_pred = argmax[rows.clamp(0, cfg.proj_h - 1).long(),
+                                            cols.clamp(0, cfg.proj_w - 1).long()]
+                        point_pred = torch.where(keep, point_pred, 0)
+                with span("pmf.scan.readback"):
+                    point_pred = point_pred.cpu().numpy()
+                    keep_np = keep.cpu().numpy() & s["valid"]
+                with span("pmf.scan.iou"):
+                    self.pixel_eval.addBatch(argmax, l2d, valid=l2d > 0)
+                    self.point_eval.addBatch(point_pred[keep_np], s["labels"][keep_np])
+                t_total += time.perf_counter() - t0
 
-            self.pixel_eval.addBatch(argmax, l2d, valid=l2d > 0)
-            keep_np = keep.cpu().numpy() & s["valid"]
-            self.point_eval.addBatch(point_pred[keep_np], s["labels"][keep_np])
-
-            if self.save_preds:
-                seq, frame = self.dataset.parsePathInfoByIndex(i)
-                out_dir = os.path.join(self.save_preds, "sequences", seq, "predictions")
-                os.makedirs(out_dir, exist_ok=True)
-                raw = self.dataset.labelInvMapping(point_pred[:int(s["valid"].sum())])
-                raw.astype(np.int32).tofile(os.path.join(out_dir, f"{frame}.label"))
+                if self.save_preds:
+                    with span("pmf.scan.save"):
+                        seq, frame = self.dataset.parsePathInfoByIndex(i)
+                        out_dir = os.path.join(self.save_preds, "sequences", seq, "predictions")
+                        os.makedirs(out_dir, exist_ok=True)
+                        raw = self.dataset.labelInvMapping(point_pred[:int(s["valid"].sum())])
+                        raw.astype(np.int32).tofile(os.path.join(out_dir, f"{frame}.label"))
             if i % 100 == 0 or i == n - 1:
                 log.info(f"[{i + 1}/{n}] 3D mIoU {self.point_eval.getIoU()[0]:.4f} "
                          f"({t_total / (i + 1) * 1000:.1f} ms/scan)")

@@ -32,6 +32,7 @@ from ..losses import (explog_dice_loss, focal_softmax_loss, lovasz_softmax_loss,
 from ..metrics.iou import confusion_matrix
 from ..ops.reduce import argmax_last
 from ..parallel import average_gradients, global_sum, global_sum_count
+from ..utils.spans import span
 
 
 @dataclass(frozen=True)
@@ -110,20 +111,28 @@ def make_pmf_train_step(model, optimizer, cfg: LossConfig, mt_sigma=None, remat:
     [C, C] confusion matrices of both streams, on the batch's device. With
     `remat` the model's stages are recomputed in the backward pass instead
     of kept (less memory, about one more forward of time; the same
-    numbers)."""
+    numbers). The step and its parts are spans (`utils/spans.py`):
+    pmf.step holding pmf.step.forward, .loss, .backward (holding
+    .allreduce), .optimizer and .confusion."""
 
     def step(feature, label, generator=None, points=None):
-        model.train()
-        optimizer.zero_grad()
-        lidar_pred, camera_pred = model(feature[..., 0:5], feature[..., 5:8], generator,
-                                        remat=remat)
-        total, aux = pmf_losses(lidar_pred, camera_pred, label, cfg, points, mt_sigma)
-        total.backward()
-        average_gradients(model.parameters())
-        optimizer.step()
-        with torch.no_grad():
-            aux = {k: v.detach() for k, v in aux.items()}
-            return _confusions(aux, lidar_pred, camera_pred, label, cfg.nclasses)
+        with span("pmf.step"):
+            with span("pmf.step.forward"):
+                model.train()
+                optimizer.zero_grad()
+                lidar_pred, camera_pred = model(feature[..., 0:5], feature[..., 5:8], generator,
+                                                remat=remat)
+            with span("pmf.step.loss"):
+                total, aux = pmf_losses(lidar_pred, camera_pred, label, cfg, points, mt_sigma)
+            with span("pmf.step.backward"):
+                total.backward()
+                with span("pmf.step.allreduce"):
+                    average_gradients(model.parameters())
+            with span("pmf.step.optimizer"):
+                optimizer.step()
+            with span("pmf.step.confusion"), torch.no_grad():
+                aux = {k: v.detach() for k, v in aux.items()}
+                return _confusions(aux, lidar_pred, camera_pred, label, cfg.nclasses)
 
     return step
 

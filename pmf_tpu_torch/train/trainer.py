@@ -62,6 +62,7 @@ from ..losses import init_multi_task_params
 from ..metrics import IOUEval
 from ..parallel import broadcast_state, spatial, world
 from ..utils import AverageMeter, RemainTime
+from ..utils.spans import span
 from .optim import HybridOptimizer, adamw
 from .schedules import warmup_cosine_lr
 from .steps import (LossConfig, make_pmf_eval_step, make_pmf_train_step, make_salsanext_eval_step,
@@ -361,8 +362,9 @@ class Trainer:
         waiting for the loader's batches (DataTime) and the rest
         (StepTime). DT in the log lines is that wait alone. With the
         config's `profile_dir`, train iterations 2-4 of epoch 0 (each under
-        the label "Train iteration {i}") are traced into it (`_profiler`),
-        as pmf_tpu's trainer traces them with jax.profiler."""
+        the label "Train iteration {i}", a span of `utils/spans.py` as the
+        port's own are) are traced into it (`_profiler`), as pmf_tpu's
+        trainer traces them with jax.profiler."""
         train = mode == "Train"
         self.metrics.reset()
         self.metrics_img.reset()
@@ -378,7 +380,7 @@ class Trainer:
                 if profile_dir and i == 2:
                     trace.enter_context(self._profiler(profile_dir))
                 t_proc = time.time()
-                with torch.profiler.record_function(f"{mode} iteration {i}"):
+                with span(f"{mode} iteration {i}"):
                     pending.append((self._step(batch, train), self._n_real(mode, i)))
                 data_t, proc_t = t_proc - t_start, time.time() - t_proc
                 data_s, steps = data_s + data_t, steps + 1
