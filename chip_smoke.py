@@ -14,6 +14,17 @@ Phases, each of which ends the run with a non-zero exit on failure:
      host-inclusive (`ms`) and on the device alone (`device_ms`, a CUDA
      graph of 20 calls), its plain version and one PyTorch library call for
      the same function; and each kernel's per-pass split (torch.profiler);
+     (b) ASPP's branch kernel (ops/aspp.py) at the four shapes the
+     benchmark's nets give it (EPMF's camera decoder 8x512x20x80, PMF's
+     lidar head 8x256x24x77 and 1x256x24x77, EPMF's 8x256x10x40), x
+     channels-last as the nets hold it, held as in phase 15; timed as K1
+     and K2, with cuDNN's four convs as the nets called them (`library_ms`)
+     and on an NCHW copy (`library_nchw_ms`), and its bound (the products of
+     the taps that reach the map at the bf16 peak). From here on every
+     ASPP forward is watched (`AsppWatch`): it must launch the kernel once
+     where ASPP.forward's conditions hold (CUDA bf16 x with C a multiple of
+     128, grad off, no row split) and never elsewhere, and each shape and
+     layout the kernel ran at is kept for phase 15;
   4. reference: the port in float32 on the card against the port on the CPU
      (which the tests hold to pmf_tpu) at a small size, with random weights
      under which the probabilities depend on the input;
@@ -22,7 +33,9 @@ Phases, each of which ends the run with a non-zero exit on failure:
      PMFNet → argmax, then one scan through the Inference.run loop of
      tools/infer_kitti (per-scan view → forward → KNN lift → IoU). The
      kernels' launch counts are read around this phase alone, and both
-     must be > 0. Prints the batched path's scans/s;
+     must be > 0; the ASPP kernel's around one batched call and around the
+     scan, each of which must be 1 (its lidar head; 2 for EPMF in 7(c):
+     `launches_aspp`). Prints the batched path's scans/s;
   6. train: (a) the train view (flip, 7° rotation, a crop offset, a fixed
      ColorJitter) with return_points through K2 and K1, bit-equal to the
      same call with the plain fills; (b) one float32 train step at a small
@@ -144,7 +157,14 @@ Phases, each of which ends the run with a non-zero exit on failure:
      its four phases (the cells pmf_r34_kitti_eval_b8 and
      pmf_r34_kitti_train_b8, and EPMF eval and train) at a short length (2
      repeats of 2 timed calls), every gate passing, and each phase's line
-     parsed with every field set.
+     parsed with every field set;
+ 15. ASPP's branch kernel at every shape the paths above ran it at
+     (phases 5-13, as `AsppWatch` recorded them: the KITTI, nuScenes and
+     A2D2 eval batches, the per-scan loops, the Trainers' validation),
+     with random operands in the recorded layout: each branch within 2
+     bf16 ulps of its largest output of the plain convs (cuDNN) and within
+     1 ulp of the float32 convs of the same bf16 operands, the buffer's
+     pooled slice untouched (`seen` in the kernel line).
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Without a CUDA card the script exits 1 and
@@ -379,6 +399,162 @@ def check_kernels(dev, cfg, batch, smi):
     return entries
 
 
+ASPP_DIL = (6, 12, 18)
+# (label, N, C, H, W): the ASPPs of the nets at their eval batches and one scan
+ASPP_SHAPES = (("EPMF camera decoder", 8, 512, 20, 80), ("PMF lidar head", 8, 256, 24, 77),
+               ("EPMF lidar head", 8, 256, 10, 40), ("PMF lidar head, one scan", 1, 256, 24, 77))
+ASPP_ULPS, ASPP_F32_ULPS = 2.0, 1.0  # kernel vs plain (cuDNN), vs float32 sums
+
+
+def bf16_ulp(v: float) -> float:
+    """The spacing of bf16 numbers at |v| > 0."""
+    return 2.0 ** (np.floor(np.log2(v)) - 7)
+
+
+def aspp_operands(dev, nb: int, c: int, h: int, w: int, channels_last: bool, seed: int):
+    """Random x [nb, c, h, w] (bf16, in the layout asked for), the four
+    branches' float32 kernels and biases, and a zero [nb, h, w, 5c] buffer."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(nb, c, h, w, generator=g).to(dev, torch.bfloat16)
+    if channels_last:
+        x = x.contiguous(memory_format=torch.channels_last)
+    ws = [(torch.randn(c, c, k, k, generator=g) / (k * k * c) ** 0.5).to(dev)
+          for k in (1, 3, 3, 3)]
+    bs = [(torch.randn(c, generator=g) * 0.1).to(dev) for _ in range(4)]
+    return x, ws, bs, torch.zeros((nb, h, w, 5 * c), dtype=torch.bfloat16, device=dev)
+
+
+def hold_aspp(label: str, x, ws, bs, dil, out) -> tuple:
+    """The kernel into `out` against its plain version (cuDNN) and the
+    float32 convs of the same bf16 operands: each branch within ASPP_ULPS /
+    ASPP_F32_ULPS bf16 ulps of its largest output, the pooled slice left
+    untouched. Returns the largest of each, in ulps."""
+    from pmf_tpu_torch.ops import aspp
+
+    c = x.shape[1]
+    ref, truth = torch.zeros_like(out), out.float()
+    aspp.aspp_branches(x, ws, bs, dil, out)
+    aspp.aspp_branches_plain(x, ws, bs, dil, ref)
+    aspp.aspp_branches_plain(x.float(), [t.to(torch.bfloat16).float() for t in ws], bs, dil,
+                             truth)
+    torch.cuda.synchronize()
+    errs, errs32 = [], []
+    for b in range(4):
+        sl = slice(c * (1 + b), c * (2 + b))
+        errs.append((out[..., sl].float() - ref[..., sl].float()).abs().max().item()
+                    / bf16_ulp(ref[..., sl].float().abs().max().item()))
+        errs32.append((out[..., sl].float() - truth[..., sl]).abs().max().item()
+                      / bf16_ulp(truth[..., sl].abs().max().item()))
+    if max(errs) > ASPP_ULPS or max(errs32) > ASPP_F32_ULPS or out[..., :c].any():
+        fail(f"[aspp] {label}: the kernel's branches differ from the plain convs by {errs} "
+             f"ulps (limit {ASPP_ULPS}), from the float32 sums by {errs32} (limit "
+             f"{ASPP_F32_ULPS}), or it wrote the pooled slice")
+    nb, _, h, w = x.shape
+    print(f"[aspp] {label} {nb}x{c}x{h}x{w} dilations {tuple(dil)}: kernel vs plain "
+          f"{max(errs):.3g} bf16 ulps of each branch's largest output (limit {ASPP_ULPS}), vs "
+          f"float32 sums {max(errs32):.3g} (limit {ASPP_F32_ULPS}); pooled slice untouched")
+    return max(errs), max(errs32)
+
+
+def check_aspp(dev, smi) -> list:
+    """3(b): ASPP's branch kernel held (`hold_aspp`) and timed at each of
+    ASPP_SHAPES (see the module docstring). Returns one dict of numbers a
+    shape."""
+    import torch.nn.functional as F
+
+    from pmf_tpu_torch.ops import aspp
+    from pmf_tpu_torch.utils.flops import H100_BF16_PEAK_FLOPS
+    from pmf_tpu_torch.utils.timing import HBM_BYTES_PER_S, device_ms, time_ms
+
+    rows = []
+    for i, (label, nb, c, h, w) in enumerate(ASPP_SHAPES):
+        x, ws, bs, out = aspp_operands(dev, nb, c, h, w, True, 40 + i)
+        ref = torch.zeros_like(out)
+        err, err32 = hold_aspp(label, x, ws, bs, ASPP_DIL, out)
+
+        def library(xx):
+            for b in range(4):
+                d = ASPP_DIL[b - 1] if b else 1
+                F.conv2d(xx, ws[b].to(torch.bfloat16), bs[b].to(torch.bfloat16),
+                         padding=d if b else 0, dilation=d)
+
+        flops = aspp.live_flops(nb, h, w, c, ASPP_DIL)
+        n_bytes = 2 * (x.numel() + 28 * c * c + nb * h * w * 4 * c)
+        t_ops, t_bytes = flops / H100_BF16_PEAK_FLOPS * 1e3, n_bytes / HBM_BYTES_PER_S * 1e3
+        x_nchw = x.contiguous()
+        e = {"label": label, "shape": [nb, c, h, w], "max_ulps": err, "max_ulps_f32": err32,
+             "gflop": flops / 1e9,
+             "ms": time_ms(lambda: aspp.aspp_branches(x, ws, bs, ASPP_DIL, out)),
+             "device_ms": device_ms(lambda: aspp.aspp_branches(x, ws, bs, ASPP_DIL, out)),
+             "bound_ms": max(t_ops, t_bytes),
+             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+             "plain_ms": time_ms(lambda: aspp.aspp_branches_plain(x, ws, bs, ASPP_DIL, ref)),
+             "library_ms": device_ms(lambda: library(x)),
+             "library_nchw_ms": device_ms(lambda: library(x_nchw))}
+        print(f"[timing] aspp_branches ({label}): ms {e['ms']:.5g} (host-inclusive), device_ms "
+              f"{e['device_ms']:.5g} (CUDA graph), bound {e['bound_ms']:.5g} ({e['bound_by']}: "
+              f"{flops / 1e9:.4g} GFLOP, {n_bytes / 1e6:.4g} MB), plain {e['plain_ms']:.5g}, "
+              f"library {e['library_ms']:.5g} (cuDNN as the nets call it), "
+              f"{e['library_nchw_ms']:.5g} (on an NCHW copy) on {smi}")
+        rows.append(e)
+        if i == 0:
+            trace("aspp_branches", lambda: aspp.aspp_branches(x, ws, bs, ASPP_DIL, out), smi)
+    return rows
+
+
+class AsppWatch:
+    """Watches every ASPP forward from `install()` on (ASPP.forward wrapped,
+    host-side only): the forward must launch the ASPP kernel once where its
+    conditions hold (CUDA bf16 x with C a multiple of 128, grad off, no row
+    split) and never elsewhere. `seen` maps each (N, C, H, W, dilations,
+    channels-last) the kernel ran at to its forwards."""
+    seen: dict = {}
+
+    @classmethod
+    def install(cls):
+        from pmf_tpu_torch.models import pmf
+        from pmf_tpu_torch.ops import aspp
+        from pmf_tpu_torch.parallel import spatial
+
+        forward = pmf.ASPP.forward
+
+        def watched(module, x):
+            before = aspp.aspp_branches.launches
+            y = forward(module, x)
+            ran = aspp.aspp_branches.launches - before
+            want = int(x.is_cuda and x.dtype == torch.bfloat16 and x.shape[1] % 128 == 0
+                       and not torch.is_grad_enabled() and spatial.active() is None)
+            if ran != want:
+                fail(f"[aspp] an ASPP forward on {tuple(x.shape)} {x.dtype} (grad "
+                     f"{torch.is_grad_enabled()}, split {spatial.active() is not None}) "
+                     f"launched the kernel {ran} times, not {want}")
+            if ran:
+                dil = tuple(b.dilation[0] for b in (module.atrous_block6, module.atrous_block12,
+                                                    module.atrous_block18))
+                key = (*x.shape, dil, x.is_contiguous(memory_format=torch.channels_last))
+                cls.seen[key] = cls.seen.get(key, 0) + 1
+            return y
+
+        pmf.ASPP.forward = watched
+
+
+def check_aspp_seen(dev) -> list:
+    """Phase 15: the kernel held (`hold_aspp`) at each shape, dilations and
+    layout `AsppWatch` saw it run at, with random operands. Returns one
+    dict a shape."""
+    if not AsppWatch.seen:
+        fail("[aspp] no path ran the ASPP kernel")
+    rows = []
+    for i, ((nb, c, h, w, dil, cl), n) in enumerate(sorted(AsppWatch.seen.items())):
+        x, ws, bs, out = aspp_operands(dev, nb, c, h, w, cl, 60 + i)
+        err, err32 = hold_aspp(f"seen {n} times, {'channels-last' if cl else 'NCHW'}", x, ws,
+                               bs, dil, out)
+        rows.append({"shape": [nb, c, h, w], "dilations": list(dil), "channels_last": cl,
+                     "forwards": n, "max_ulps": err, "max_ulps_f32": err32})
+        del x, ws, bs, out
+    return rows
+
+
 def ulp(x: torch.Tensor) -> float:
     """The spacing of float32 numbers at |x| (a 0-d tensor)."""
     x = x.abs().float()
@@ -472,13 +648,14 @@ def main_path(dev, cfg, batch, raw, smi, timing: dict | None = None):
 
 
 def eval_path(dev, tag, name, model, opts, build, build_with_fill, cfg, batch, raw, size, smi,
-              timing: dict | None = None):
+              timing: dict | None = None, aspp_per_call: int = 1):
     """Batched eval (`build` → `model` → argmax) and one scan through the
     Inference.run loop (KNN on), with both kernels' launch counts read
-    around them; the batched path against the same with the plain fill; its
-    scans/s (also to `timing["scans_s"]` when given). Returns the launch
-    counts."""
-    from pmf_tpu_torch.ops import argmax_last, rasterize, zbuffer
+    around them and the ASPP kernel's around one batched call (which must
+    be `aspp_per_call`); the batched path against the same with the plain
+    fill; its scans/s (also to `timing["scans_s"]` when given). Returns the
+    launch counts."""
+    from pmf_tpu_torch.ops import argmax_last, aspp, rasterize
     from pmf_tpu_torch.tools.infer_kitti import Inference
 
     b = len(raw[0])
@@ -492,17 +669,21 @@ def eval_path(dev, tag, name, model, opts, build, build_with_fill, cfg, batch, r
         lidar, _ = model(f[..., :5], f[..., 5:8])
         return f, m, lab, lidar, argmax_last(lidar)
 
-    zbuffer.zbuffer_keys.launches = 0
-    rasterize.rasterize_zbuffer.launches = 0
+    reset_launches()
     with torch.inference_mode():
         f, m, lab, lidar, pred = batched(cfg)
+        per_call = aspp.aspp_branches.launches
         report = inference.run()
-    torch.cuda.synchronize()
-    launches = {"zbuffer_keys": zbuffer.zbuffer_keys.launches,
-                "rasterize_zbuffer": rasterize.rasterize_zbuffer.launches}
-    print(f"{tag} launches on the main path: {json.dumps(launches)}")
+    launches = read_launches()
+    per_scan = launches["aspp_branches"] - per_call
+    print(f"{tag} launches on the main path: {json.dumps(launches)} (one batched call and "
+          "one scan)")
     if min(launches.values()) == 0:
         fail(f"{tag} a kernel of the main path was not launched: {launches}")
+    if per_call != aspp_per_call or per_scan != aspp_per_call:
+        fail(f"{tag} the ASPP kernel ran {per_call} times in one batched call and {per_scan} "
+             f"in one scan, not {aspp_per_call}")
+    launches["aspp_branches"] = per_call
 
     if lidar.shape != (b, h, w, 20) or not torch.isfinite(lidar).all():
         fail(f"{tag} lidar probabilities: shape {tuple(lidar.shape)}, finite "
@@ -974,7 +1155,8 @@ def epmf_main_path(dev, cfg, batch, raw, smi):
                    config={"PVconfig": pv, "post": {"KNN": {"params": {
                        "knn": 5, "search": 5, "sigma": 1.0, "cutoff": 1.0}}}})
     return eval_path(dev, "[epmf] (c)", "build_v2_batch+EPMFNet+argmax", model, opts,
-                     build_v2_batch, _build_v2_batch, cfg, batch, raw, (HE, WE), smi)
+                     build_v2_batch, _build_v2_batch, cfg, batch, raw, (HE, WE), smi,
+                     aspp_per_call=2)
 
 
 def epmf_train_setup():
@@ -1324,7 +1506,6 @@ def nuscenes_inference(dev, model, net: str, raw, smi, tag: str):
     launches counted around it alone; ms/keyframe, the merged coverage, a
     profiled keyframe's device busy time; then K1 held on the first
     keyframe's items (`hold_item_keys`). Returns the launch counts."""
-    from pmf_tpu_torch.ops import rasterize, zbuffer
     from pmf_tpu_torch.tools.infer_nuscenes import NuscenesInference
 
     opts = nusc_opts(net)
@@ -1334,15 +1515,15 @@ def nuscenes_inference(dev, model, net: str, raw, smi, tag: str):
     with torch.inference_mode():
         make(6).run()                                     # warm-up keyframe
     torch.cuda.synchronize()
-    zbuffer.zbuffer_keys.launches = 0
-    rasterize.rasterize_zbuffer.launches = 0
+    reset_launches()
     report = make(n).run()
-    torch.cuda.synchronize()
-    launches = {"zbuffer_keys": zbuffer.zbuffer_keys.launches,
-                "rasterize_zbuffer": rasterize.rasterize_zbuffer.launches}
-    if launches["zbuffer_keys"] != n or report["frames"] != n // 6:
+    launches = read_launches()
+    per_item = 2 if net == "EPMFNet" else 1    # ASPPs a forward, one forward an item
+    if launches["zbuffer_keys"] != n or report["frames"] != n // 6 \
+            or launches["aspp_branches"] != per_item * n:
         fail(f"{tag} NuscenesInference ran {report['frames']} keyframes with K1 launched "
-             f"{launches['zbuffer_keys']} times for {n} items")
+             f"{launches['zbuffer_keys']} times and the ASPP kernel "
+             f"{launches['aspp_branches']} times for {n} items")
     if not (np.isfinite(report["mIoU"]) and 0 < report["coverage"] < 1):
         fail(f"{tag} NuscenesInference report: {report}")
     hold_item_keys(make(6), raw, tag)
@@ -1360,7 +1541,7 @@ def nuscenes_batched_eval(dev, model, raw, smi):
     the same with the plain fill; scans/s. Returns the launch counts."""
     from pmf_tpu_torch.data import build_batch, pv_config
     from pmf_tpu_torch.data.perspective_pipeline import _build_batch
-    from pmf_tpu_torch.ops import argmax_last, rasterize, zbuffer
+    from pmf_tpu_torch.ops import argmax_last, rasterize
 
     cfg = pv_config(nusc_opts("PMFNet"))
     batch = on([a[:NBV] for a in raw], dev)
@@ -1370,15 +1551,13 @@ def nuscenes_batched_eval(dev, model, raw, smi):
         lidar, _ = model(f[..., :5], f[..., 5:8])
         return f, m, lab, lidar, argmax_last(lidar)
 
-    zbuffer.zbuffer_keys.launches = 0
-    rasterize.rasterize_zbuffer.launches = 0
+    reset_launches()
     with torch.inference_mode():
         f, m, lab, lidar, pred = batched()
-        torch.cuda.synchronize()
-        launches = {"zbuffer_keys": zbuffer.zbuffer_keys.launches,
-                    "rasterize_zbuffer": rasterize.rasterize_zbuffer.launches}
-        if launches["rasterize_zbuffer"] == 0:
-            fail(f"[nusc] (c) K2 was not launched on the batched view: {launches}")
+        launches = read_launches()
+        if launches["rasterize_zbuffer"] == 0 or launches["aspp_branches"] != 1:
+            fail(f"[nusc] (c) K2 was not launched on the batched view, or the ASPP kernel "
+                 f"not once: {launches}")
         if lidar.shape != (NBV, NH, NW, 17) or not torch.isfinite(lidar).all() \
                 or pred.unique().numel() < 2:
             fail(f"[nusc] (c) batched probabilities {tuple(lidar.shape)}, finite "
@@ -1567,18 +1746,20 @@ def a2d2_scans(raw):
 
 
 def reset_launches():
-    from pmf_tpu_torch.ops import rasterize, zbuffer
+    from pmf_tpu_torch.ops import aspp, rasterize, zbuffer
 
     zbuffer.zbuffer_keys.launches = 0
     rasterize.rasterize_zbuffer.launches = 0
+    aspp.aspp_branches.launches = 0
 
 
 def read_launches() -> dict:
-    from pmf_tpu_torch.ops import rasterize, zbuffer
+    from pmf_tpu_torch.ops import aspp, rasterize, zbuffer
 
     torch.cuda.synchronize()
     return {"zbuffer_keys": zbuffer.zbuffer_keys.launches,
-            "rasterize_zbuffer": rasterize.rasterize_zbuffer.launches}
+            "rasterize_zbuffer": rasterize.rasterize_zbuffer.launches,
+            "aspp_branches": aspp.aspp_branches.launches}
 
 
 def check_a2d2_kernels(dev, raw, smi):
@@ -1718,8 +1899,9 @@ def a2d2_batched_eval(dev, model, raw, smi):
     with torch.inference_mode():
         f, m, lab, lidar, pred = batched()
         launches = read_launches()
-        if launches["rasterize_zbuffer"] == 0:
-            fail(f"[a2d2] (c) K2 was not launched on the batched view: {launches}")
+        if launches["rasterize_zbuffer"] == 0 or launches["aspp_branches"] != 2:
+            fail(f"[a2d2] (c) K2 was not launched on the batched view, or the ASPP kernel "
+                 f"not twice (EPMF's two ASPPs): {launches}")
         if lidar.shape != (ABV, AEH, AEW, 39) or not torch.isfinite(lidar).all() \
                 or pred.unique().numel() < 2:
             fail(f"[a2d2] (c) batched probabilities {tuple(lidar.shape)}, finite "
@@ -1764,7 +1946,7 @@ def a2d2_paths(dev, raw, smi):
     reset_launches()
     report = A2D2Inference(opts, model, scans, 4, dev).run()
     launches = read_launches()
-    if launches != {"zbuffer_keys": 4, "rasterize_zbuffer": 0} or \
+    if launches != {"zbuffer_keys": 4, "rasterize_zbuffer": 0, "aspp_branches": 8} or \
             not all(np.isfinite(v) for v in report.values()):
         fail(f"[a2d2] (c) A2D2Inference over 4 scans: {report}, launches {launches}")
     print(f"[a2d2] (c) A2D2Inference.run (EPMF, bf16, {AEH}x{AEW} window, {AN} points): "
@@ -2671,6 +2853,8 @@ def main():
     batch = [torch.from_numpy(a).to(dev) for a in raw]
 
     entries = check_kernels(dev, cfg, batch, smi)
+    aspp_rows = check_aspp(dev, smi)
+    AsppWatch.install()
     check_reference(dev)
     timing: dict = {}
     launches = main_path(dev, cfg, batch, raw, smi, timing)
@@ -2713,11 +2897,13 @@ def main():
     remat_phase(dev, smi, timing, split)
     t_bench = time.perf_counter()
     bench_phase(smi)
+    t_seen = time.perf_counter()
+    aspp_seen = check_aspp_seen(dev)
     print(f"[time] phases 1-7 {t_range - t_run:.1f} s, phase 8 {t_nusc - t_range:.1f} s, phase 9 "
           f"{t_a2d2 - t_nusc:.1f} s, phase 10 {t_cli - t_a2d2:.1f} s, phase 11 "
           f"{t_split - t_cli:.1f} s, phase 12 {t_remat - t_split:.1f} s, phase 13 "
-          f"{t_bench - t_remat:.1f} s, phase 14 {time.perf_counter() - t_bench:.1f} s (the build "
-          "included in phase 2)")
+          f"{t_bench - t_remat:.1f} s, phase 14 {t_seen - t_bench:.1f} s, phase 15 "
+          f"{time.perf_counter() - t_seen:.1f} s (the build included in phase 2)")
     range_keys = ("range_max_abs_err", "range_ms", "range_device_ms", "range_plain_ms",
                   "range_bound_ms", "range_bound_by", "range_library_ms")
     for e in entries:
@@ -2747,7 +2933,12 @@ def main():
             *(p + k for p in ("a2d2_", "a2d2_val_")
               for k in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                         "library_ms")))
-    print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))
+    aspp_entry = {"name": "aspp_branches", "route": "cuda", "source": "pmf_tpu_torch/csrc/aspp.cu",
+                  "replaces": None,
+                  "launches_aspp": {"pmf_eval": launches["aspp_branches"],
+                                    "epmf_eval": launches_epmf["aspp_branches"]},
+                  "shapes": aspp_rows, "seen": aspp_seen}
+    print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries] + [aspp_entry]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

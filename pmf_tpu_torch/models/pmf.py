@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..ops.aspp import aspp_branches, aspp_takes
 from ..ops.resize import upsample_bilinear
 from ..parallel import spatial
 from ..utils.spans import span
@@ -63,9 +64,28 @@ class ASPP(nn.Module):
         self.conv_1x1_output = Conv2d(depth * 5, depth, 1)
 
     def forward(self, x):
-        gp = self.conv(spatial.spatial_mean(x)).expand(-1, -1, *x.shape[2:])
-        cat = torch.cat([gp, self.atrous_block1(x), self.atrous_block6(x),
-                         self.atrous_block12(x), self.atrous_block18(x)], 1)
+        """In inference on a tensor the kernel takes (`ops.aspp.aspp_takes`:
+        CUDA, bf16, C a multiple of 128) outside a row split, the four
+        conv branches run as one kernel (`ops.aspp.aspp_branches`) written
+        into the NHWC concat buffer, the pooled branch broadcast into its
+        first slice, and the 1x1 merge gives channels-last out. Otherwise
+        (training, float32, the CPU, the split) as four convs and a
+        concatenation, the dilated ones on an NCHW copy of x where C is 512
+        or more: given channels-last bf16 x of that width at a batch's map
+        size, cuDNN runs them on its direct kernel, 8-33x slower."""
+        gp = self.conv(spatial.spatial_mean(x))
+        branches = (self.atrous_block1, self.atrous_block6, self.atrous_block12,
+                    self.atrous_block18)
+        if aspp_takes(x) and not torch.is_grad_enabled() and spatial.active() is None:
+            n, c, h, w = x.shape
+            cat = x.new_empty((n, h, w, 5 * c))
+            cat[..., :c] = gp.view(n, 1, 1, c)
+            aspp_branches(x, [b.weight for b in branches], [b.bias for b in branches],
+                          tuple(b.dilation[0] for b in branches[1:]), cat)
+            return self.conv_1x1_output(cat.permute(0, 3, 1, 2))
+        xd = x.contiguous() if x.shape[1] >= 512 else x
+        cat = torch.cat([gp.expand(-1, -1, *x.shape[2:]), branches[0](x),
+                         *(b(xd) for b in branches[1:])], 1)
         return self.conv_1x1_output(cat)
 
 

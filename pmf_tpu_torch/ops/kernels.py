@@ -26,7 +26,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-SOURCES = ("zbuffer_keys.cu", "rasterize.cu")
+SOURCES = ("zbuffer_keys.cu", "rasterize.cu", "aspp.cu")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -36,6 +36,7 @@ _SIGNATURES = {
     "pmf_zbuffer_keys": [_P, _P, _P, _I, _I, _I, _I, _P],
     "pmf_rasterize_zbuffer": [_P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, ctypes.c_float, _I, _P],
+    "pmf_aspp_branches": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -503,3 +503,99 @@ def test_sensat_batch_card_matches_cpu(cuda_device):
                               torch.from_numpy(lm).to(cuda_device), cfg, True,
                               aug_override=type(aug)(*(t.to(cuda_device) for t in aug)))
     assert all(torch.equal(a, b.cpu()) for a, b in zip(cpu, card))
+
+
+# (N, C, H, W): EPMF's camera-decoder ASPP, PMF's lidar head at batch 8 and one
+# scan, EPMF's lidar head
+ASPP_SHAPES = {"epmf_camera": (8, 512, 20, 80), "pmf_head": (8, 256, 24, 77),
+               "epmf_head": (8, 256, 10, 40), "pmf_head_scan": (1, 256, 24, 77)}
+
+
+def bf16_ulp(v: float) -> float:
+    return 2.0 ** (np.floor(np.log2(v)) - 7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ASPP_SHAPES.values(), ids=ASPP_SHAPES.keys())
+def test_aspp_kernel_matches_plain(cuda_device, shape):
+    """The ASPP branch kernel on x channels-last (as the nets hold it): each
+    branch within 2 bf16 ulps of its largest output of the plain convs
+    (cuDNN's bf16 convs land up to 1.03 ulp from the float32 sums, the
+    kernel, which rounds once, 0.5), within 1 ulp of the float32 convs of
+    the same bf16 operands, and the buffer's pooled slice left as it was."""
+    from pmf_tpu_torch.ops import aspp
+
+    nb, c, h, w = shape
+    g = torch.Generator().manual_seed(c + h)
+    x = torch.randn(nb, c, h, w, generator=g).to(cuda_device, torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    ws = [(torch.randn(c, c, k, k, generator=g) / (k * k * c) ** 0.5).to(cuda_device)
+          for k in (1, 3, 3, 3)]
+    bs = [(torch.randn(c, generator=g) * 0.1).to(cuda_device) for _ in range(4)]
+    dil = (6, 12, 18)
+    out = torch.full((nb, h, w, 5 * c), 7.0, dtype=torch.bfloat16, device=cuda_device)
+    ref = torch.zeros_like(out)
+    truth = ref.float()
+    launches = aspp.aspp_branches.launches
+    aspp.aspp_branches(x, ws, bs, dil, out)
+    assert aspp.aspp_branches.launches == launches + 1
+    aspp.aspp_branches_plain(x, ws, bs, dil, ref)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        aspp.aspp_branches_plain(x.float(), [t.to(torch.bfloat16).float() for t in ws], bs, dil,
+                                 truth)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert (out[..., :c] == 7.0).all()
+    for b in range(4):
+        sl = slice(c * (1 + b), c * (2 + b))
+        got, want, exact = out[..., sl].float(), ref[..., sl].float(), truth[..., sl]
+        assert (got - want).abs().max() <= 2 * bf16_ulp(want.abs().max().item())
+        assert (got - exact).abs().max() <= bf16_ulp(exact.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_aspp_kernel_launches_per_eval_call(cuda_device):
+    """One eval call of EPMFNet launches the ASPP kernel twice (its camera
+    decoder and its lidar head), one of PMFNet once (its lidar head); with
+    grad on, neither launches it."""
+    from pmf_tpu_torch.models import EPMFNet, PMFNet, random_weights
+    from pmf_tpu_torch.ops import aspp
+
+    g = torch.Generator().manual_seed(0)
+    pcd = torch.randn(2, 64, 256, 5, generator=g).to(cuda_device)
+    img = torch.rand(2, 64, 256, 3, generator=g).to(cuda_device)
+    for net, want in ((EPMFNet, 2), (PMFNet, 1)):
+        model = random_weights(net(nclasses=20, base_channels=32, dtype=torch.bfloat16),
+                               seed=1).to(cuda_device)
+        aspp.aspp_branches.launches = 0
+        with torch.inference_mode():
+            model(pcd, img)
+        assert aspp.aspp_branches.launches == want
+        model(pcd, img)
+        assert aspp.aspp_branches.launches == want
+
+
+@pytest.mark.cuda
+def test_aspp_conv_path_keeps_off_cudnn_direct_kernel(cuda_device):
+    """With grad on (the conv path) a 512-channel ASPP on channels-last bf16
+    x at EPMF's camera-decoder shape runs its forward and backward without
+    cuDNN's direct conv kernel, which channels-last x sends the dilated
+    convs to there (20x slower); the output is NCHW, as before."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pmf_tpu_torch.models.pmf import ASPP
+
+    m = ASPP(512, 512).to(cuda_device, torch.bfloat16)
+    x = torch.randn(8, 512, 20, 80, device=cuda_device, dtype=torch.bfloat16).contiguous(
+        memory_format=torch.channels_last).requires_grad_()
+    m(x).sum().backward()  # cuDNN's choices are made on the first call
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        y = m(x)
+        y.sum().backward()
+        torch.cuda.synchronize()
+    kernels = [e.key for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    assert kernels and not [k for k in kernels if "direct_kernel" in k]
+    assert y.is_contiguous()
