@@ -42,6 +42,7 @@ from ..metrics import IOUEval
 from ..models import build_model, load_weights
 from ..ops import argmax_last, knn_postprocess
 from ..utils import disable_tf32, resolve_device
+from ..utils.spans import span
 from ..utils.tables import per_class_report
 
 log = logging.getLogger(__name__)
@@ -71,7 +72,15 @@ class NuscenesInference:
     """The eval loop over `n_items` (lidar, camera) items from `reader(i)`
     (the numpy sample dict of `data.nuscenes_sample_reader`), item i of the
     keyframe whose lidar token is `tokens[i]`. `class_names` label the
-    report's classes."""
+    report's classes.
+
+    `run` marks each keyframe as the span pmf.keyframe (`utils/spans.py`),
+    holding per item pmf.keyframe.read (the reader), .h2d (the copies to
+    the device), pmf.view, pmf.model, .lift (amax, argmax and the gathers
+    or the KNN vote), .readback (the `.cpu()` of class and confidence) and
+    .merge (the numpy max-confidence merge), and once .finish
+    (`_finish_frame`). Its counters: `items` and `frames` done, and
+    `contested`, the points that more than one camera of a keyframe kept."""
 
     def __init__(self, opts: Options, model: torch.nn.Module, reader: Callable[[int], dict],
                  n_items: int, device: torch.device, tokens, use_knn: bool = False,
@@ -92,6 +101,7 @@ class NuscenesInference:
                            "cutoff": float(knn.get("cutoff", 1.0))}
         self.point_eval = IOUEval(opts.nclasses, ignore=[0])
         self.covered = self.points = 0
+        self.items = self.frames = self.contested = 0
 
     @classmethod
     def from_files(cls, opts: Options, weights: str, device: torch.device,
@@ -112,54 +122,71 @@ class NuscenesInference:
         """One item's per-point (class [N] int32, confidence [N] float32)
         as numpy arrays: class 0 and confidence -1 where not kept."""
         cfg = self.cfg
-        dev = lambda k: torch.as_tensor(s[k], device=self.device)
+        with span("pmf.keyframe.h2d"):
+            points, labels, valid, proj, image = (
+                torch.as_tensor(s[k], device=self.device)
+                for k in ("points", "labels", "valid", "proj_matrix", "image"))
         f, m, _, rows, cols, keep, depth = self.build(
-            dev("points"), dev("labels"), dev("valid"), dev("proj_matrix"), dev("image"),
-            int(s["img_h"]), int(s["img_w"]), cfg)
+            points, labels, valid, proj, image, int(s["img_h"]), int(s["img_w"]), cfg)
         probs = self.model(f[None, ..., :5], f[None, ..., 5:8])[0][0]
-        conf, argmax = probs.amax(-1), argmax_last(probs)
-        rows_c = rows.clamp(0, conf.shape[0] - 1)
-        cols_c = cols.clamp(0, conf.shape[1] - 1)
-        if self.use_knn:
-            proj_depth = torch.where(m, f[..., 0] * cfg.img_stds[0] + cfg.img_mean[0], -1.0)
-            vote = lambda values: knn_postprocess(proj_depth, depth, values, cols_c, rows_c,
-                                                  valid=keep, nclasses=self.opts.nclasses,
-                                                  **self.knn_params)
-            pt_pred = vote(argmax)
-            pt_conf = vote(conf).float() if self.is_v2 else conf[rows_c.long(), cols_c.long()]
-        else:
-            pt_pred = argmax[rows_c.long(), cols_c.long()]
-            pt_conf = conf[rows_c.long(), cols_c.long()]
-        pt_pred = torch.where(keep, pt_pred, 0)
-        pt_conf = torch.where(keep, pt_conf.float(), -1.0)
-        return pt_pred.cpu().numpy(), pt_conf.cpu().numpy()
+        with span("pmf.keyframe.lift"):
+            conf, argmax = probs.amax(-1), argmax_last(probs)
+            rows_c = rows.clamp(0, conf.shape[0] - 1)
+            cols_c = cols.clamp(0, conf.shape[1] - 1)
+            if self.use_knn:
+                proj_depth = torch.where(m, f[..., 0] * cfg.img_stds[0] + cfg.img_mean[0], -1.0)
+                vote = lambda values: knn_postprocess(proj_depth, depth, values, cols_c, rows_c,
+                                                      valid=keep, nclasses=self.opts.nclasses,
+                                                      **self.knn_params)
+                pt_pred = vote(argmax)
+                pt_conf = vote(conf).float() if self.is_v2 else conf[rows_c.long(), cols_c.long()]
+            else:
+                pt_pred = argmax[rows_c.long(), cols_c.long()]
+                pt_conf = conf[rows_c.long(), cols_c.long()]
+            pt_pred = torch.where(keep, pt_pred, 0)
+            pt_conf = torch.where(keep, pt_conf.float(), -1.0)
+        with span("pmf.keyframe.readback"):
+            return pt_pred.cpu().numpy(), pt_conf.cpu().numpy()
 
     @torch.inference_mode()
     def run(self, max_frames: int = -1) -> dict:
+        """Score the items' keyframes (the first `max_frames`, all with -1).
+        Each keyframe is a span (`utils/spans.py`), pmf.keyframe, holding
+        its items' parts and its finish; the counters `items`, `frames` and
+        `contested` (points that more than one camera of a keyframe kept)
+        add up over the calls."""
         n_items = self.n_items if max_frames <= 0 else min(self.n_items, max_frames * N_CAMERAS)
-        merged_pred = merged_conf = current = last = None
-        cams_seen = n_frames = 0
+        n_frames = i = 0
         t0 = time.perf_counter()
-        for i in range(n_items):
+        while i < n_items:
             token = self.tokens[i]
-            if token != current:
-                if current is not None and cams_seen == N_CAMERAS:
-                    self._finish_frame(current, merged_pred, last)
+            with span("pmf.keyframe"):
+                merged_pred = merged_conf = seen = contested = last = None
+                cams_seen = 0
+                while i < n_items and self.tokens[i] == token:
+                    with span("pmf.keyframe.read"):
+                        last = self.reader(i)
+                    pt_pred, pt_conf = self.item(last)
+                    with span("pmf.keyframe.merge"):
+                        kept = pt_conf >= 0
+                        if merged_conf is None:
+                            merged_pred, merged_conf = pt_pred, pt_conf
+                            seen, contested = kept, np.zeros_like(kept)
+                        else:
+                            better = pt_conf > merged_conf
+                            merged_conf = np.where(better, pt_conf, merged_conf)
+                            merged_pred = np.where(better, pt_pred, merged_pred)
+                            contested |= seen & kept
+                            seen |= kept
+                    cams_seen += 1
+                    self.items += 1
+                    i += 1
+                if cams_seen == N_CAMERAS:
+                    with span("pmf.keyframe.finish"):
+                        self._finish_frame(token, merged_pred, last)
                     n_frames += 1
-                current, cams_seen = token, 0
-                merged_pred = merged_conf = None
-            last = self.reader(i)
-            pt_pred, pt_conf = self.item(last)
-            if merged_conf is None:
-                merged_pred, merged_conf = pt_pred, pt_conf
-            else:
-                better = pt_conf > merged_conf
-                merged_conf = np.where(better, pt_conf, merged_conf)
-                merged_pred = np.where(better, pt_pred, merged_pred)
-            cams_seen += 1
-        if current is not None and cams_seen == N_CAMERAS:
-            self._finish_frame(current, merged_pred, last)
-            n_frames += 1
+                    self.frames += 1
+                    self.contested += int(contested.sum())
         return self.report(n_frames, time.perf_counter() - t0)
 
     def _finish_frame(self, token: str, pred: np.ndarray, s: dict):

@@ -20,6 +20,11 @@ from autograd's). The tree:
     pmf.scan                 tools/infer_kitti.py: Inference.run, a scan
       pmf.scan.read, pmf.scan.h2d, pmf.view, pmf.model, pmf.scan.lift,
       pmf.scan.readback, pmf.scan.iou, pmf.scan.save
+    pmf.keyframe             tools/infer_nuscenes.py: NuscenesInference.run,
+                             a keyframe's six items and its finish
+      per item: pmf.keyframe.read, pmf.keyframe.h2d, pmf.view, pmf.model,
+      pmf.keyframe.lift, pmf.keyframe.readback, pmf.keyframe.merge;
+      once: pmf.keyframe.finish
     pmf.view                 data/: the batched and per-scan views
       pmf.k2                 ops/rasterize.py: rasterize_zbuffer
       pmf.k1                 ops/zbuffer.py: zbuffer_keys
