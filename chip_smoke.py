@@ -24,7 +24,19 @@ Phases, each of which ends the run with a non-zero exit on failure:
      ASPP forward is watched (`AsppWatch`): it must launch the kernel once
      where ASPP.forward's conditions hold (CUDA bf16 x with C a multiple of
      128, grad off, no row split) and never elsewhere, and each shape and
-     layout the kernel ran at is kept for phase 15;
+     layout the kernel ran at is kept for phase 15; (c) the conv epilogue
+     (ops/epilogue.py) in place at the ten shapes of the card test
+     (tests/test_torch_cuda.py: EPILOGUE_SHAPES: PMF-KITTI's lidar stream at
+     full resolution with 32 and 64 channels, a 256-channel 1/8 map, the
+     20-class logits, the stem's relu, a fusion block's sigmoid, ResNet34's
+     and ResNet50's layer4, a keyframe item's context block and 17-class
+     logits at 896x1600), held to its plain twin on the same card tensors (1
+     bf16 ulp; equal but for sigmoid) and timed as K1 and K2 over copies of
+     its operands, so that each call reads past the L2, beside its bytes
+     bound, the twin and PyTorch's chain of passes it replaced
+     (`library_ms`). From here on every eval path below counts the conv
+     epilogue's launches: one a conv in bf16 (105 a PMF-ResNet34 forward, 99
+     EPMF-ResNet34, 122 PMF-ResNet50, 51 SalsaNext), none in float32;
   4. reference: the port in float32 on the card against the port on the CPU
      (which the tests hold to pmf_tpu) at a small size, with random weights
      under which the probabilities depend on the input;
@@ -35,7 +47,8 @@ Phases, each of which ends the run with a non-zero exit on failure:
      kernels' launch counts are read around this phase alone, and both
      must be > 0; the ASPP kernel's around one batched call and around the
      scan, each of which must be 1 (its lidar head; 2 for EPMF in 7(c):
-     `launches_aspp`). Prints the batched path's scans/s;
+     `launches_aspp`), and the conv epilogue's likewise: 105, one a conv (99
+     for EPMF: `launches_epilogue`). Prints the batched path's scans/s;
   6. train: (a) the train view (flip, 7° rotation, a crop offset, a fixed
      ColorJitter) with return_points through K2 and K1, bit-equal to the
      same call with the plain fills; (b) one float32 train step at a small
@@ -75,7 +88,7 @@ Phases, each of which ends the run with a non-zero exit on failure:
      full width (base 32, batch 8): build_range_batch → SalsaNext → argmax,
      the K1 fill equal to the plain fill, one scan through
      SalsaNextInference.run with KNN, K1 launched (`launches_salsanext`),
-     scans/s; (d) the SalsaNext Trainer at full width (batch 8, the yaml's
+     scans/s, and one bf16 forward of the batch (the conv epilogue's 51); (d) the SalsaNext Trainer at full width (batch 8, the yaml's
      point augmentation, reversed yaw bounds included), 2 warm-up and 8
      timed steps and one validation pass, checked as (6c); ms/step, the
      step split, the peak memory (`launches_salsanext_train`). TF32 is off
@@ -92,7 +105,8 @@ Phases, each of which ends the run with a non-zero exit on failure:
      train step as 6(b); (c) PMF-ResNet34 eval (bf16, 896x1600):
      NuscenesInference.run over 2 keyframes with KNN, 12 K1 launches,
      ms/keyframe and the merged coverage, then the batched validation view
-     at batch 4 (K2, scans/s) (`launches_nusc`); (d) the PMF nuScenes
+     at batch 4 (K2, scans/s) (`launches_nusc`), then PMF-ResNet50 (the
+     keyframe cell's net) on one item at 896x1600 (the conv epilogue's 122); (d) the PMF nuScenes
      Trainer (batch 3, 640x960, point Lovász; `launches_nusc_train`); (e)
      one keyframe through NuscenesInference's EPMF branch at 640x1280
      (`launches_nusc_epmf`), one EPMF train step at batch 6, 320x1088, with
@@ -171,6 +185,8 @@ The line before the last is {"kernels": [...]}; the last is
 prints neither.
 """
 import copy
+import importlib.util
+import itertools
 import json
 import os
 import re
@@ -404,6 +420,10 @@ ASPP_DIL = (6, 12, 18)
 ASPP_SHAPES = (("EPMF camera decoder", 8, 512, 20, 80), ("PMF lidar head", 8, 256, 24, 77),
                ("EPMF lidar head", 8, 256, 10, 40), ("PMF lidar head, one scan", 1, 256, 24, 77))
 ASPP_ULPS, ASPP_F32_ULPS = 2.0, 1.0  # kernel vs plain (cuDNN), vs float32 sums
+L2_PAST_BYTES = 200_000_000  # bytes through the card between two uses of a tensor: 4x its L2
+# the conv epilogue's launches an eval forward makes in bf16, one a conv
+# (tests/test_torch_epilogue.py: NETS); a float32 forward makes none
+EPILOGUES = {"PMFNet": 105, "EPMFNet": 99, "PMFNet-ResNet50": 122, "SalsaNext": 51}
 
 
 def bf16_ulp(v: float) -> float:
@@ -499,6 +519,86 @@ def check_aspp(dev, smi) -> list:
         rows.append(e)
         if i == 0:
             trace("aspp_branches", lambda: aspp.aspp_branches(x, ws, bs, ASPP_DIL, out), smi)
+    return rows
+
+
+def epilogue_chain(y, bias, act, a, b, res, post):
+    """The ops the nets ran after a cuDNN conv before the kernel: the bias
+    added in place (as F.conv2d adds it), the activation, BN's x·a + b in
+    bf16, the residual, the closing relu; each a pass of its own."""
+    from pmf_tpu_torch.models import layers
+
+    y = layers._ACTS[act](y.add_(bias.to(y.dtype)[:, None, None]))
+    if a is not None:
+        y = y * a.to(y.dtype)[:, None, None] + b.to(y.dtype)[:, None, None]
+    if res is not None:
+        y = y + res
+    return layers._ACTS[post](y)
+
+
+def check_epilogue(dev, smi) -> list:
+    """3(c): the conv epilogue kernel at each of the card test's
+    EPILOGUE_SHAPES (tests/test_torch_cuda.py), in place on y, held to its
+    plain twin on the same card tensors (within 1 bf16 ulp of each element;
+    equal but for sigmoid) with the residual untouched; timed as K1 and K2
+    (`ms`, `device_ms`) but cycling through copies of the operands, each
+    call's bytes past the L2 since its last use (`copies`), beside its bound
+    (one read and one write of y, one read of the residual, at 3.35 TB/s),
+    the twin (`plain_ms`) and PyTorch's chain of passes the nets ran before
+    it (`library_ms`), on the same copies. Returns one dict of numbers a
+    shape."""
+    from pmf_tpu_torch.ops import epilogue
+    from pmf_tpu_torch.utils.timing import HBM_BYTES_PER_S, device_ms, time_ms
+    # by path: a `tests` package installed elsewhere would shadow the repository's folder
+    spec = importlib.util.spec_from_file_location("test_torch_cuda", os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "tests", "test_torch_cuda.py"))
+    card_tests = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(card_tests)
+
+    rows = []
+    for i, (label, (variant, nb, c, h, w)) in enumerate(card_tests.EPILOGUE_SHAPES.items()):
+        y, bias, act, a, b, res, post = card_tests.epilogue_operands(dev, variant, nb, c, h, w,
+                                                                     80 + i)
+        res_before = None if res is None else res.clone()
+        want = epilogue.conv_epilogue_plain(y.clone(), bias, act, a, b, res, post)
+        got = epilogue.conv_epilogue(y, bias, act, a, b, res, post)
+        torch.cuda.synchronize()
+        ulps = card_tests.bf16_ulps(got, want)
+        unequal = int((got != want).sum())
+        if ulps > 1.0 or (unequal and act != "sigmoid") or (
+                res is not None and not torch.equal(res, res_before)):
+            fail(f"[epilogue] {label}: the kernel differs from its twin by {ulps} bf16 ulps at "
+                 f"{unequal} elements, or it wrote the residual")
+        del want, res_before
+        n_bytes = 2 * y.numel() * (3 if res is not None else 2)
+        k = max(1, min(64, -(-L2_PAST_BYTES // n_bytes)))   # copies: 200 MB between two uses
+        iters = k * max(1, round(20 / k))
+        copies = [(y.clone(), None if res is None else res.clone()) for _ in range(k)]
+
+        def cycled(fn):
+            turn = itertools.cycle(copies)
+            return lambda: fn(*next(turn))
+
+        kernel = cycled(lambda yy, rr: epilogue.conv_epilogue(yy, bias, act, a, b, rr, post))
+        e = {"label": label, "variant": variant, "shape": [nb, c, h, w], "max_ulps": ulps,
+             "unequal": unequal, "mb": n_bytes / 1e6, "copies": k,
+             "ms": time_ms(kernel, iters=iters),
+             "device_ms": device_ms(kernel, iters=iters),
+             "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
+             "plain_ms": time_ms(cycled(lambda yy, rr: epilogue.conv_epilogue_plain(
+                 yy, bias, act, a, b, rr, post)), iters=max(5, k)),
+             "library_ms": device_ms(cycled(lambda yy, rr: epilogue_chain(
+                 yy, bias, act, a, b, rr, post)), iters=iters)}
+        print(f"[timing] conv_epilogue ({label}, {variant}, {nb}x{c}x{h}x{w}): {ulps:.3g} ulps "
+              f"from the twin at {unequal} of {y.numel()} elements; ms {e['ms']:.5g} "
+              f"(host-inclusive), device_ms {e['device_ms']:.5g} (CUDA graph), bound "
+              f"{e['bound_ms']:.5g} (bytes: {n_bytes / 1e6:.4g} MB), plain {e['plain_ms']:.5g}, "
+              f"library {e['library_ms']:.5g} (PyTorch's chain), over {k} copies on {smi}")
+        rows.append(e)
+        if i == 0:
+            trace("conv_epilogue", kernel, smi)
+        del y, res, copies, kernel
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -648,14 +748,16 @@ def main_path(dev, cfg, batch, raw, smi, timing: dict | None = None):
 
 
 def eval_path(dev, tag, name, model, opts, build, build_with_fill, cfg, batch, raw, size, smi,
-              timing: dict | None = None, aspp_per_call: int = 1):
+              timing: dict | None = None, aspp_per_call: int = 1,
+              epilogue_per_call: int = EPILOGUES["PMFNet"]):
     """Batched eval (`build` → `model` → argmax) and one scan through the
     Inference.run loop (KNN on), with both kernels' launch counts read
-    around them and the ASPP kernel's around one batched call (which must
-    be `aspp_per_call`); the batched path against the same with the plain
-    fill; its scans/s (also to `timing["scans_s"]` when given). Returns the
-    launch counts."""
-    from pmf_tpu_torch.ops import argmax_last, aspp, rasterize
+    around them, the ASPP kernel's around one batched call and the scan
+    (each must be `aspp_per_call`) and the conv epilogue's likewise (each
+    `epilogue_per_call`: one a conv); the batched path against the same with
+    the plain fill; its scans/s (also to `timing["scans_s"]` when given).
+    Returns the launch counts."""
+    from pmf_tpu_torch.ops import argmax_last, aspp, epilogue, rasterize
     from pmf_tpu_torch.tools.infer_kitti import Inference
 
     b = len(raw[0])
@@ -673,9 +775,15 @@ def eval_path(dev, tag, name, model, opts, build, build_with_fill, cfg, batch, r
     with torch.inference_mode():
         f, m, lab, lidar, pred = batched(cfg)
         per_call = aspp.aspp_branches.launches
+        epilogues = epilogue.conv_epilogue.launches
         report = inference.run()
     launches = read_launches()
     per_scan = launches["aspp_branches"] - per_call
+    epilogues_scan = launches["conv_epilogue"] - epilogues
+    if epilogues != epilogue_per_call or epilogues_scan != epilogue_per_call:
+        fail(f"{tag} the conv epilogue ran {epilogues} times in one batched call and "
+             f"{epilogues_scan} in one scan, not {epilogue_per_call}")
+    print(f"{tag} conv epilogue: {epilogues} launches a batched call, {epilogues_scan} a scan")
     print(f"{tag} launches on the main path: {json.dumps(launches)} (one batched call and "
           "one scan)")
     if min(launches.values()) == 0:
@@ -684,6 +792,7 @@ def eval_path(dev, tag, name, model, opts, build, build_with_fill, cfg, batch, r
         fail(f"{tag} the ASPP kernel ran {per_call} times in one batched call and {per_scan} "
              f"in one scan, not {aspp_per_call}")
     launches["aspp_branches"] = per_call
+    launches["conv_epilogue"] = epilogues
 
     if lidar.shape != (b, h, w, 20) or not torch.isfinite(lidar).all():
         fail(f"{tag} lidar probabilities: shape {tuple(lidar.shape)}, finite "
@@ -1156,7 +1265,7 @@ def epmf_main_path(dev, cfg, batch, raw, smi):
                        "knn": 5, "search": 5, "sigma": 1.0, "cutoff": 1.0}}}})
     return eval_path(dev, "[epmf] (c)", "build_v2_batch+EPMFNet+argmax", model, opts,
                      build_v2_batch, _build_v2_batch, cfg, batch, raw, (HE, WE), smi,
-                     aspp_per_call=2)
+                     aspp_per_call=2, epilogue_per_call=EPILOGUES["EPMFNet"])
 
 
 def epmf_train_setup():
@@ -1263,7 +1372,7 @@ def salsanext_main_path(dev, batch, raw, smi):
     from pmf_tpu_torch.data import build_range_batch, range_config
     from pmf_tpu_torch.data.range_pipeline import _build_range_batch
     from pmf_tpu_torch.models import build_model, random_weights
-    from pmf_tpu_torch.ops import argmax_last, rasterize, zbuffer
+    from pmf_tpu_torch.ops import argmax_last, zbuffer
     from pmf_tpu_torch.tools.infer_salsanext import SalsaNextInference
 
     opts = salsanext_opts()
@@ -1278,17 +1387,28 @@ def salsanext_main_path(dev, batch, raw, smi):
         pred = model(f)
         return f, m, lab, pred, argmax_last(pred)
 
-    zbuffer.zbuffer_keys.launches = 0
-    rasterize.rasterize_zbuffer.launches = 0
+    reset_launches()
     with torch.inference_mode():
         f, m, lab, pred, am = batched()
         report = inference.run()
-    torch.cuda.synchronize()
-    launches = {"zbuffer_keys": zbuffer.zbuffer_keys.launches,
-                "rasterize_zbuffer": rasterize.rasterize_zbuffer.launches}
+    launches = read_launches()
     print(f"[salsanext] (c) launches on the SalsaNext eval path: {json.dumps(launches)}")
-    if launches["zbuffer_keys"] == 0:
-        fail(f"[salsanext] (c) K1 was not launched on the SalsaNext eval path: {launches}")
+    if launches["zbuffer_keys"] == 0 or launches["conv_epilogue"]:
+        fail(f"[salsanext] (c) K1 was not launched on the SalsaNext eval path, or the conv "
+             f"epilogue was in float32: {launches}")
+    model.dtype = torch.bfloat16          # the same net in bf16: one launch a conv
+    reset_launches()
+    with torch.inference_mode():
+        pred16 = model(f)
+    bf16 = read_launches()["conv_epilogue"]
+    model.dtype = torch.float32
+    if bf16 != EPILOGUES["SalsaNext"] or not torch.isfinite(pred16).all():
+        fail(f"[salsanext] (c) a bf16 SalsaNext forward launched the conv epilogue {bf16} "
+             f"times, not {EPILOGUES['SalsaNext']}, or its probabilities are not finite")
+    print(f"[salsanext] (c) one bf16 forward of the batch: {bf16} conv epilogue launches; "
+          f"argmax agrees with float32's at {float((argmax_last(pred16) == am).double().mean()):.4f} "
+          "of the pixels")
+    del pred16
     if pred.shape != (RB, RH, RW, 20) or not torch.isfinite(pred).all() \
             or not torch.isfinite(f).all() or f.shape != (RB, RH, RW, 5):
         fail(f"[salsanext] (c) probabilities {tuple(pred.shape)} or features "
@@ -1520,10 +1640,12 @@ def nuscenes_inference(dev, model, net: str, raw, smi, tag: str):
     launches = read_launches()
     per_item = 2 if net == "EPMFNet" else 1    # ASPPs a forward, one forward an item
     if launches["zbuffer_keys"] != n or report["frames"] != n // 6 \
-            or launches["aspp_branches"] != per_item * n:
+            or launches["aspp_branches"] != per_item * n \
+            or launches["conv_epilogue"] != EPILOGUES[net] * n:
         fail(f"{tag} NuscenesInference ran {report['frames']} keyframes with K1 launched "
-             f"{launches['zbuffer_keys']} times and the ASPP kernel "
-             f"{launches['aspp_branches']} times for {n} items")
+             f"{launches['zbuffer_keys']} times, the ASPP kernel "
+             f"{launches['aspp_branches']} times and the conv epilogue "
+             f"{launches['conv_epilogue']} times for {n} items")
     if not (np.isfinite(report["mIoU"]) and 0 < report["coverage"] < 1):
         fail(f"{tag} NuscenesInference report: {report}")
     hold_item_keys(make(6), raw, tag)
@@ -1555,9 +1677,10 @@ def nuscenes_batched_eval(dev, model, raw, smi):
     with torch.inference_mode():
         f, m, lab, lidar, pred = batched()
         launches = read_launches()
-        if launches["rasterize_zbuffer"] == 0 or launches["aspp_branches"] != 1:
+        if launches["rasterize_zbuffer"] == 0 or launches["aspp_branches"] != 1 \
+                or launches["conv_epilogue"] != EPILOGUES["PMFNet"]:
             fail(f"[nusc] (c) K2 was not launched on the batched view, or the ASPP kernel "
-                 f"not once: {launches}")
+                 f"not once, or the conv epilogue not once a conv: {launches}")
         if lidar.shape != (NBV, NH, NW, 17) or not torch.isfinite(lidar).all() \
                 or pred.unique().numel() < 2:
             fail(f"[nusc] (c) batched probabilities {tuple(lidar.shape)}, finite "
@@ -1581,6 +1704,37 @@ def nuscenes_batched_eval(dev, model, raw, smi):
           f"{NN} points, bf16: kernel fill == plain fill; {int(m.sum())} occupied pixels; "
           f"{NBV / med:.2f} scans/s (median of {len(times)} batches: {med * 1e3:.2f} ms, min "
           f"{min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}) on {smi}")
+    return launches
+
+
+def nuscenes_r50_item(dev, raw, smi):
+    """9(c), third part: PMF-ResNet50 (pmf_nuscenes.yaml with img_backbone
+    resnet50, the net of the keyframe cell) in bf16 on one item's "cam" view
+    at 896x1600: one conv epilogue launch a conv (122) and one ASPP launch,
+    the probabilities finite; ms a forward. Returns the launch counts."""
+    from pmf_tpu_torch.data import build_batch, pv_config
+    from pmf_tpu_torch.models import build_model, random_weights
+    from pmf_tpu_torch.ops import argmax_last
+
+    opts = nusc_opts("PMFNet", img_backbone="resnet50")
+    torch.manual_seed(0)
+    model = random_weights(build_model(opts), seed=0).to(dev)
+    with torch.inference_mode():
+        f, _, _ = build_batch(*on([a[:1] for a in raw], dev), pv_config(opts))
+        forward = lambda: model(f[..., :5], f[..., 5:8])
+        forward()                                          # warm-up
+        reset_launches()
+        lidar, _ = forward()
+        launches = read_launches()
+        ms = ms_per_call(forward)
+    n_classes = argmax_last(lidar).unique().numel()
+    if launches["conv_epilogue"] != EPILOGUES["PMFNet-ResNet50"] \
+            or launches["aspp_branches"] != 1 or lidar.shape != (1, NH, NW, 17) \
+            or not torch.isfinite(lidar).all() or n_classes < 2:
+        fail(f"[nusc] (c) PMF-ResNet50 on one item: probabilities {tuple(lidar.shape)}, finite "
+             f"{bool(torch.isfinite(lidar).all())}, {n_classes} classes; launches {launches}")
+    print(f"[nusc] (c) PMF-ResNet50 on one item at {NH}x{NW}, bf16: {n_classes} classes "
+          f"predicted, {ms:.2f} ms a forward; launches {json.dumps(launches)} on {smi}")
     return launches
 
 
@@ -1634,7 +1788,6 @@ def salsanext_nuscenes_scan(dev, raw, smi):
     held to its plain version on that scan's keys (65536 points into 65536
     pixels). Returns the launch counts."""
     from pmf_tpu_torch.models import build_model, random_weights
-    from pmf_tpu_torch.ops import rasterize, zbuffer
     from pmf_tpu_torch.ops.projection import spherical_project
     from pmf_tpu_torch.ops.scatter import packed_keys
     from pmf_tpu_torch.tools.infer_salsanext import SalsaNextInference
@@ -1646,13 +1799,11 @@ def salsanext_nuscenes_scan(dev, raw, smi):
     inference = SalsaNextInference(opts, model, lambda i: scan, 1, dev, use_knn=True)
     inference.run()                                       # warm-up
     inference = SalsaNextInference(opts, model, lambda i: scan, 1, dev, use_knn=True)
-    zbuffer.zbuffer_keys.launches = 0
-    rasterize.rasterize_zbuffer.launches = 0
+    reset_launches()
     report = inference.run()
-    torch.cuda.synchronize()
-    launches = {"zbuffer_keys": zbuffer.zbuffer_keys.launches,
-                "rasterize_zbuffer": rasterize.rasterize_zbuffer.launches}
-    if launches["zbuffer_keys"] != 1 or not np.isfinite(report["mIoU"]):
+    launches = read_launches()
+    if launches["zbuffer_keys"] != 1 or launches["conv_epilogue"] \
+            or not np.isfinite(report["mIoU"]):
         fail(f"[nusc] (e) SalsaNextInference on nuScenes: {report}, launches {launches}")
     cfg = inference.cfg
     one = [torch.as_tensor(scan[k], device=dev)[None] for k in ("points", "valid")]
@@ -1683,6 +1834,7 @@ def nuscenes_phase(dev, smi):
     pmf = nusc_model("PMFNet", dev)
     counts = {"launches_nusc": [nuscenes_inference(dev, pmf, "PMFNet", raw, smi, "[nusc] (c)"),
                                 nuscenes_batched_eval(dev, pmf, raw, smi)]}
+    nuscenes_r50_item(dev, raw, smi)
     marks.append(("(c)", time.perf_counter()))
     counts["launches_nusc_train"] = [train_path(
         dev, smi, "[nusc] (d)", "PMF-ResNet34 nuScenes",
@@ -1746,20 +1898,23 @@ def a2d2_scans(raw):
 
 
 def reset_launches():
-    from pmf_tpu_torch.ops import aspp, rasterize, zbuffer
+    from pmf_tpu_torch.ops import aspp, epilogue, rasterize, zbuffer
 
     zbuffer.zbuffer_keys.launches = 0
     rasterize.rasterize_zbuffer.launches = 0
     aspp.aspp_branches.launches = 0
+    epilogue.conv_epilogue.launches = 0
 
 
 def read_launches() -> dict:
-    from pmf_tpu_torch.ops import aspp, rasterize, zbuffer
+    from pmf_tpu_torch.ops import aspp, epilogue, rasterize, zbuffer
 
     torch.cuda.synchronize()
     return {"zbuffer_keys": zbuffer.zbuffer_keys.launches,
             "rasterize_zbuffer": rasterize.rasterize_zbuffer.launches,
-            "aspp_branches": aspp.aspp_branches.launches}
+            "aspp_branches": aspp.aspp_branches.launches,
+            "conv_epilogue": epilogue.conv_epilogue.launches}
+
 
 
 def check_a2d2_kernels(dev, raw, smi):
@@ -1899,9 +2054,11 @@ def a2d2_batched_eval(dev, model, raw, smi):
     with torch.inference_mode():
         f, m, lab, lidar, pred = batched()
         launches = read_launches()
-        if launches["rasterize_zbuffer"] == 0 or launches["aspp_branches"] != 2:
+        if launches["rasterize_zbuffer"] == 0 or launches["aspp_branches"] != 2 \
+                or launches["conv_epilogue"] != EPILOGUES["EPMFNet"]:
             fail(f"[a2d2] (c) K2 was not launched on the batched view, or the ASPP kernel "
-                 f"not twice (EPMF's two ASPPs): {launches}")
+                 f"not twice (EPMF's two ASPPs), or the conv epilogue not once a conv: "
+                 f"{launches}")
         if lidar.shape != (ABV, AEH, AEW, 39) or not torch.isfinite(lidar).all() \
                 or pred.unique().numel() < 2:
             fail(f"[a2d2] (c) batched probabilities {tuple(lidar.shape)}, finite "
@@ -1946,7 +2103,8 @@ def a2d2_paths(dev, raw, smi):
     reset_launches()
     report = A2D2Inference(opts, model, scans, 4, dev).run()
     launches = read_launches()
-    if launches != {"zbuffer_keys": 4, "rasterize_zbuffer": 0, "aspp_branches": 8} or \
+    if launches != {"zbuffer_keys": 4, "rasterize_zbuffer": 0, "aspp_branches": 8,
+                    "conv_epilogue": 4 * EPILOGUES["EPMFNet"]} or \
             not all(np.isfinite(v) for v in report.values()):
         fail(f"[a2d2] (c) A2D2Inference over 4 scans: {report}, launches {launches}")
     print(f"[a2d2] (c) A2D2Inference.run (EPMF, bf16, {AEH}x{AEW} window, {AN} points): "
@@ -2854,6 +3012,7 @@ def main():
 
     entries = check_kernels(dev, cfg, batch, smi)
     aspp_rows = check_aspp(dev, smi)
+    epilogue_rows = check_epilogue(dev, smi)
     AsppWatch.install()
     check_reference(dev)
     timing: dict = {}
@@ -2938,7 +3097,13 @@ def main():
                   "launches_aspp": {"pmf_eval": launches["aspp_branches"],
                                     "epmf_eval": launches_epmf["aspp_branches"]},
                   "shapes": aspp_rows, "seen": aspp_seen}
-    print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries] + [aspp_entry]}))
+    epilogue_entry = {"name": "conv_epilogue", "route": "cuda",
+                      "source": "pmf_tpu_torch/csrc/conv_epilogue.cu", "replaces": None,
+                      "launches_epilogue": {"pmf_eval": launches["conv_epilogue"],
+                                            "epmf_eval": launches_epmf["conv_epilogue"]},
+                      "shapes": epilogue_rows}
+    print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]
+                      + [aspp_entry, epilogue_entry]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -28,8 +28,8 @@ from torch import nn
 from ..ops.resize import PixelShuffle
 from ..parallel import spatial
 from ..utils.spans import span
-from .layers import BatchNorm2d, Conv2d, leaky_relu, remat_stage
-from .pmf import ASPP, LeakyReLU, ResidualBasedFusionBlock, RGBDecoder
+from .layers import BatchNorm2d, Conv2d, conv_block, leaky_relu, remat_stage
+from .pmf import ASPP, ConvStage, LeakyReLU, ResidualBasedFusionBlock, RGBDecoder
 from .resnet import ResNetEncoder
 from .salsanext import ResBlock, UpBlock
 
@@ -94,8 +94,8 @@ class SparseResContextBlock(nn.Module):
 def extra_upsample(cin: int, cout: int) -> nn.Sequential:
     """conv 3×3 → LeakyReLU → BN → PixelShuffle(2), under the reference's
     nn.Sequential indices."""
-    return nn.Sequential(Conv2d(cin, cout, 3, padding=1), LeakyReLU(), BatchNorm2d(cout),
-                         PixelShuffle(2))
+    return ConvStage(Conv2d(cin, cout, 3, padding=1), LeakyReLU(), BatchNorm2d(cout),
+                     PixelShuffle(2))
 
 
 class SalsaNextFusionV2(nn.Module):
@@ -160,7 +160,7 @@ class SalsaNextFusionV2(nn.Module):
             for block, skip in zip((self.upBlock1, self.upBlock2, self.upBlock3, self.upBlock4),
                                    reversed(skips)):
                 up = run(block, up, skip, g)
-            logits = run(lambda up: self.logits(self.extraUpSample(up)).float(), up)
+            logits = run(lambda up: conv_block(self.extraUpSample(up), self.logits).float(), up)
             return torch.softmax(logits, dim=1), down5c
 
 

@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..ops import epilogue
 from ..parallel import global_sum_count, rand_rows, spatial
 
 # True while `remat_stage` recomputes a stage in the backward pass: the
@@ -146,18 +147,63 @@ class Dropout2d(nn.Module):
         return torch.where(keep, x / (1.0 - self.p), 0.0)
 
 
-def conv_bn(x, conv: nn.Conv2d, bn: BatchNorm2d, act=None):
-    """conv → BN [→ act], with the BN folded into the conv at eval:
-    BN(conv_k(x) + c) == conv_{k·a}(x) + (c·a + b). In train mode the
-    batch statistics need the conv's output, so the chain runs unfolded."""
+_ACTS = {None: lambda x: x, "relu": torch.relu, "leaky_relu": leaky_relu,
+         "sigmoid": torch.sigmoid}
+
+
+def _fuses(x: torch.Tensor, residual, bn) -> bool:
+    """Whether a conv on x runs without its bias and leaves the rest to one
+    `epilogue.conv_epilogue` pass: in inference (grad off, BN in eval mode)
+    on CUDA bf16 x (and residual) contiguous in channels_last, outside a row
+    split."""
+    return (not torch.is_grad_enabled() and (bn is None or not bn.training)
+            and spatial.active() is None and epilogue.epilogue_takes(x)
+            and (residual is None or epilogue.epilogue_takes(residual)))
+
+
+def _chain(y, act, bn=None, residual=None, post=None):
+    """The epilogue as PyTorch's ops: act, BN, + residual, post."""
+    y = _ACTS[act](y)
+    if bn is not None:
+        y = bn(y)
+    if residual is not None:
+        y = y + residual
+    return _ACTS[post](y)
+
+
+def _conv_then_epilogue(x, conv: Conv2d, w, bias, act, bn, residual, post):
+    """post(BN(act(conv_w(x) + bias)) + residual) with `conv`'s geometry, its
+    kernel w and the bias given. Where `_fuses` holds the conv runs without
+    its bias and one pass of `epilogue.conv_epilogue` does the rest; else
+    PyTorch's ops, as the modules run them."""
+    if _fuses(x, residual, bn):
+        y = conv._conv_forward(x, w.to(x.dtype), None)
+        a, b = (None, None) if bn is None else bn.fold()
+        return epilogue.conv_epilogue(y, bias.float(), act, a, b, residual, post)
+    return _chain(conv._conv_forward(x, w.to(x.dtype), bias.to(x.dtype)), act, bn, residual,
+                  post)
+
+
+def conv_block(x, conv: Conv2d, act: str | None = None, bn: BatchNorm2d | None = None,
+               residual=None, post: str | None = None):
+    """post(BN(act(conv(x))) + residual): `act` and `post` are None, "relu",
+    "leaky_relu" or "sigmoid"; `bn`, the residual and `post` optional; one
+    pass of the epilogue kernel where `_fuses` holds (`_conv_then_epilogue`)."""
+    return _conv_then_epilogue(x, conv, conv.weight, conv.bias, act, bn, residual, post)
+
+
+def conv_bn(x, conv: nn.Conv2d, bn: BatchNorm2d, act: str | None = None, residual=None,
+            post: str | None = None):
+    """post(act(BN(conv(x))) + residual) (`conv_block`'s names), with the BN
+    folded into the conv at eval: BN(conv_k(x) + c) == conv_{k·a}(x) +
+    (c·a + b), then `_conv_then_epilogue`. In train mode the batch
+    statistics need the conv's output, so the chain runs unfolded."""
     if bn.training:
-        y = bn(conv(x))
-    else:
-        a, b = bn.fold()
-        w = conv.weight * a[:, None, None, None]
-        bias = b if conv.bias is None else conv.bias * a + b
-        y = conv._conv_forward(x, w.to(x.dtype), bias.to(x.dtype))
-    return y if act is None else act(y)
+        return _chain(bn(conv(x)), act, None, residual, post)
+    a, b = bn.fold()
+    bias = b if conv.bias is None else conv.bias * a + b
+    return _conv_then_epilogue(x, conv, conv.weight * a[:, None, None, None], bias, act, None,
+                               residual, post)
 
 
 def avg_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:

@@ -16,7 +16,7 @@ from ..ops.aspp import aspp_branches, aspp_takes
 from ..ops.resize import upsample_bilinear
 from ..parallel import spatial
 from ..utils.spans import span
-from .layers import BatchNorm2d, Conv2d, conv_bn, leaky_relu, remat_stage
+from .layers import BatchNorm2d, Conv2d, conv_block, conv_bn, leaky_relu, remat_stage
 from .resnet import ResNetEncoder
 from .salsanext import ResBlock, ResContextBlock, SalsaNext, UpBlock
 
@@ -26,6 +26,18 @@ class LeakyReLU(nn.Module):
         return leaky_relu(x)
 
 
+class ConvStage(nn.Sequential):
+    """conv → LeakyReLU → BN, then any further modules, under
+    nn.Sequential's indices (a reference checkpoint's names); the first three
+    run as one `conv_block`."""
+
+    def forward(self, x):
+        x = conv_block(x, self[0], "leaky_relu", self[2])
+        for module in list(self)[3:]:
+            x = module(x)
+        return x
+
+
 class ResidualBasedFusionBlock(nn.Module):
     """Attention-gated residual fusion of camera features into the lidar
     stream: fused = BN(lrelu(conv(cat))), out = fused·σ(att(fused)) + pcd."""
@@ -33,8 +45,8 @@ class ResidualBasedFusionBlock(nn.Module):
     def __init__(self, pcd_channels: int, img_channels: int):
         super().__init__()
         c = pcd_channels
-        self.fuse_conv = nn.Sequential(Conv2d(c + img_channels, c, 3, padding=1),
-                                       LeakyReLU(), BatchNorm2d(c))
+        self.fuse_conv = ConvStage(Conv2d(c + img_channels, c, 3, padding=1), LeakyReLU(),
+                                   BatchNorm2d(c))
         self.attention = nn.Sequential(Conv2d(c, c, 3, padding=1), BatchNorm2d(c),
                                        nn.ReLU(), Conv2d(c, c, 3, padding=1),
                                        BatchNorm2d(c), nn.Sigmoid())
@@ -44,8 +56,8 @@ class ResidualBasedFusionBlock(nn.Module):
         # residual keeps pcd_feature's (EPMF's sparse stem gives float32)
         fused = self.fuse_conv(torch.cat([pcd_feature.to(img_feature.dtype), img_feature], 1))
         a = self.attention
-        att = conv_bn(fused, a[0], a[1], torch.relu)
-        att = torch.sigmoid(conv_bn(att, a[3], a[4]))
+        att = conv_bn(fused, a[0], a[1], "relu")
+        att = conv_bn(att, a[3], a[4], "sigmoid")
         return fused * att + pcd_feature
 
 
@@ -82,7 +94,7 @@ class ASPP(nn.Module):
             cat[..., :c] = gp.view(n, 1, 1, c)
             aspp_branches(x, [b.weight for b in branches], [b.bias for b in branches],
                           tuple(b.dilation[0] for b in branches[1:]), cat)
-            return self.conv_1x1_output(cat.permute(0, 3, 1, 2))
+            return conv_block(cat.permute(0, 3, 1, 2), self.conv_1x1_output)
         xd = x.contiguous() if x.shape[1] >= 512 else x
         cat = torch.cat([gp.expand(-1, -1, *x.shape[2:]), branches[0](x),
                          *(b(xd) for b in branches[1:])], 1)
@@ -147,7 +159,7 @@ class SalsaNextFusion(nn.Module):
             for block, skip in zip((self.upBlock1, self.upBlock2, self.upBlock3, self.upBlock4),
                                    reversed(skips)):
                 up = run(block, up, skip, g)
-            return torch.softmax(self.logits(up).float(), dim=1)
+            return torch.softmax(conv_block(up, self.logits).float(), dim=1)
 
 
 class RGBDecoder(nn.Module):
@@ -159,8 +171,8 @@ class RGBDecoder(nn.Module):
         bc = base_channels
 
         def stage(cin, kernel, padding):
-            return nn.Sequential(Conv2d(cin, bc, kernel, padding=padding),
-                                 LeakyReLU(), BatchNorm2d(bc))
+            return ConvStage(Conv2d(cin, bc, kernel, padding=padding), LeakyReLU(),
+                             BatchNorm2d(bc))
 
         self.up_4a = stage(in_channels[3], 3, 1)
         self.up_3a = stage(bc + in_channels[2], 3, 1)
@@ -176,7 +188,7 @@ class RGBDecoder(nn.Module):
                             (self.up_1a, inputs[0])):
             up = remat_stage(remat, lambda u, s, block=block: upsample_bilinear(
                 block(torch.cat([u, s], 1))), up, skip)
-        return torch.softmax(self.conv(up).float(), dim=1)
+        return torch.softmax(conv_block(up, self.conv).float(), dim=1)
 
 
 class PMFNet(nn.Module):

@@ -6,11 +6,12 @@ layer3 and layer4, its mask drawn from the generator that forward takes.
 Module names are torchvision's (conv1, bn1, layer{s}.{i}.conv{j},
 layer{s}.{i}.downsample.{0,1}), so torchvision and reference checkpoints
 load as they are. Works on NCHW and returns the four stage outputs (strides
-2, 4, 8, 16).
+2, 4, 8, 16). A block's sum with its (downsampled) input and the relu after
+it are part of its last `conv_bn`, so that in inference on the card they run
+in that conv's epilogue pass.
 """
 from __future__ import annotations
 
-import torch.nn.functional as F
 from torch import nn
 
 from ..parallel import spatial
@@ -41,11 +42,9 @@ class BasicBlock(nn.Module):
         self.downsample = _downsample(cin, width, stride) if downsample else None
 
     def forward(self, x):
-        out = conv_bn(x, self.conv1, self.bn1, F.relu)
-        out = conv_bn(out, self.conv2, self.bn2)
-        if self.downsample is not None:
-            x = conv_bn(x, *self.downsample)
-        return F.relu(out + x)
+        identity = x if self.downsample is None else conv_bn(x, *self.downsample)
+        out = conv_bn(x, self.conv1, self.bn1, "relu")
+        return conv_bn(out, self.conv2, self.bn2, residual=identity, post="relu")
 
 
 class Bottleneck(nn.Module):
@@ -62,12 +61,10 @@ class Bottleneck(nn.Module):
         self.downsample = _downsample(cin, width * 4, stride) if downsample else None
 
     def forward(self, x):
-        out = conv_bn(x, self.conv1, self.bn1, F.relu)
-        out = conv_bn(out, self.conv2, self.bn2, F.relu)
-        out = conv_bn(out, self.conv3, self.bn3)
-        if self.downsample is not None:
-            x = conv_bn(x, *self.downsample)
-        return F.relu(out + x)
+        identity = x if self.downsample is None else conv_bn(x, *self.downsample)
+        out = conv_bn(x, self.conv1, self.bn1, "relu")
+        out = conv_bn(out, self.conv2, self.bn2, "relu")
+        return conv_bn(out, self.conv3, self.bn3, residual=identity, post="relu")
 
 
 class ResNetEncoder(nn.Module):
@@ -94,7 +91,7 @@ class ResNetEncoder(nn.Module):
         self.dropout = Dropout2d(dropout_rate)
 
     def stem(self, x):
-        return max_pool_3x3_s2(conv_bn(x, self.conv1, self.bn1, F.relu))
+        return max_pool_3x3_s2(conv_bn(x, self.conv1, self.bn1, "relu"))
 
     def forward(self, x, generator=None, remat: bool = False):
         """With `remat` the stem and each stage are recomputed in the

@@ -2,7 +2,9 @@
 `pmf_tpu/models/salsanext.py`), on NCHW tensors.
 
 The blocks apply conv → LeakyReLU → BatchNorm, in that order (the reference
-puts the activation before the norm), so these BNs do not fold into a conv.
+puts the activation before the norm), so these BNs do not fold into a conv;
+in inference on the card each conv's bias, activation, BN and residual run
+as one pass after it (`layers.conv_block`).
 Channel dropout draws its masks from the generator that forward takes.
 """
 from __future__ import annotations
@@ -11,7 +13,7 @@ import torch
 from torch import nn
 
 from ..ops.resize import pixel_shuffle
-from .layers import BatchNorm2d, Conv2d, Dropout2d, avg_pool_3x3_s2, leaky_relu
+from .layers import BatchNorm2d, Conv2d, Dropout2d, avg_pool_3x3_s2, conv_block
 
 
 class ResContextBlock(nn.Module):
@@ -26,9 +28,9 @@ class ResContextBlock(nn.Module):
         self.bn2 = BatchNorm2d(cout)
 
     def forward(self, x):
-        shortcut = leaky_relu(self.conv1(x))
-        resA = self.bn1(leaky_relu(self.conv2(shortcut)))
-        return shortcut + self.bn2(leaky_relu(self.conv3(resA)))
+        shortcut = conv_block(x, self.conv1, "leaky_relu")
+        resA = conv_block(shortcut, self.conv2, "leaky_relu", self.bn1)
+        return conv_block(resA, self.conv3, "leaky_relu", self.bn2, residual=shortcut)
 
 
 class ResBlock(nn.Module):
@@ -51,12 +53,12 @@ class ResBlock(nn.Module):
         self.dropout = Dropout2d(dropout_rate if drop_out else 0.0)
 
     def forward(self, x, generator=None):
-        shortcut = leaky_relu(self.conv1(x))
-        resA1 = self.bn1(leaky_relu(self.conv2(x)))
-        resA2 = self.bn2(leaky_relu(self.conv3(resA1)))
-        resA3 = self.bn3(leaky_relu(self.conv4(resA2)))
-        resA = self.bn4(leaky_relu(self.conv5(torch.cat([resA1, resA2, resA3], 1))))
-        resA = shortcut + resA
+        shortcut = conv_block(x, self.conv1, "leaky_relu")
+        resA1 = conv_block(x, self.conv2, "leaky_relu", self.bn1)
+        resA2 = conv_block(resA1, self.conv3, "leaky_relu", self.bn2)
+        resA3 = conv_block(resA2, self.conv4, "leaky_relu", self.bn3)
+        resA = conv_block(torch.cat([resA1, resA2, resA3], 1), self.conv5, "leaky_relu", self.bn4,
+                          residual=shortcut)
         resB = self.dropout(resA, generator)
         if self.pooling:
             return avg_pool_3x3_s2(resB), resA
@@ -83,10 +85,10 @@ class UpBlock(nn.Module):
     def forward(self, x, skip, generator=None):
         upA = self.dropout1(pixel_shuffle(x, 2), generator)
         upB = self.dropout2(torch.cat([upA, skip], 1), generator)
-        upE1 = self.bn1(leaky_relu(self.conv1(upB)))
-        upE2 = self.bn2(leaky_relu(self.conv2(upE1)))
-        upE3 = self.bn3(leaky_relu(self.conv3(upE2)))
-        upE = self.bn4(leaky_relu(self.conv4(torch.cat([upE1, upE2, upE3], 1))))
+        upE1 = conv_block(upB, self.conv1, "leaky_relu", self.bn1)
+        upE2 = conv_block(upE1, self.conv2, "leaky_relu", self.bn2)
+        upE3 = conv_block(upE2, self.conv3, "leaky_relu", self.bn3)
+        upE = conv_block(torch.cat([upE1, upE2, upE3], 1), self.conv4, "leaky_relu", self.bn4)
         return self.dropout3(upE, generator)
 
 
@@ -128,6 +130,6 @@ class SalsaNext(nn.Module):
         up = self.upBlock2(up, down2b, g)
         up = self.upBlock3(up, down1b, g)
         up = self.upBlock4(up, down0b, g)
-        logits = self.logits(up).float()
+        logits = conv_block(up, self.logits).float()
         out = torch.softmax(logits, dim=1) if self.softmax else logits
         return out.permute(0, 2, 3, 1)

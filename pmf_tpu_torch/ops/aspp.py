@@ -112,11 +112,6 @@ def aspp_branches_plain(x: torch.Tensor, weights, biases, dilations,
     return out
 
 
-@functools.lru_cache(maxsize=8)
-def _sms(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 @functools.lru_cache(maxsize=32)
 def _plan_on(device: torch.device, nb: int, h: int, w: int, c: int, dilations: tuple,
              bn: int) -> torch.Tensor:
@@ -158,7 +153,7 @@ def aspp_branches(x: torch.Tensor, weights, biases, dilations,
     kernels.check(out, "out", torch.bfloat16, (nb, h, w, 5 * c), x.device)
     xh = x.permute(0, 2, 3, 1).contiguous()
     packed, bias = pack_weights(weights, biases)
-    bn = tile_n(nb * h * w, c, _sms(x.device))
+    bn = tile_n(nb * h * w, c, kernels.sms(x.device))
     plan = _plan_on(x.device, nb, h, w, c, tuple(dilations), bn)
     kernels.launch("pmf_aspp_branches", x.device, xh.data_ptr(), packed.data_ptr(),
                    bias.data_ptr(), out.data_ptr(), plan.data_ptr(), plan.shape[0],

@@ -26,7 +26,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-SOURCES = ("zbuffer_keys.cu", "rasterize.cu", "aspp.cu")
+SOURCES = ("zbuffer_keys.cu", "rasterize.cu", "aspp.cu", "conv_epilogue.cu")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -37,6 +37,7 @@ _SIGNATURES = {
     "pmf_rasterize_zbuffer": [_P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, ctypes.c_float, _I, _P],
     "pmf_aspp_branches": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "pmf_conv_epilogue": [_P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -92,6 +93,12 @@ def load() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=8)
+def sms(device: torch.device) -> int:
+    """The card's multiprocessors."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,

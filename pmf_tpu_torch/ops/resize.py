@@ -31,9 +31,17 @@ def upsample_bilinear(x: torch.Tensor, scale: int = 2) -> torch.Tensor:
 
 def pixel_shuffle(x: torch.Tensor, r: int = 2) -> torch.Tensor:
     """[N, C*r*r, H, W] → [N, C, H*r, W*r], input channel c*r*r + i*r + j
-    going to row offset i and column offset j (torch's nn.PixelShuffle)."""
+    going to row offset i and column offset j (torch's nn.PixelShuffle). In
+    inference a channels-last x gives a channels-last output (one copy, as
+    F.pixel_shuffle's), so that the convs after it keep that layout and
+    their epilogues (`layers.conv_block`) stay one pass."""
     if spatial.active() is None:
-        return F.pixel_shuffle(x, r)
+        if torch.is_grad_enabled() or not x.is_contiguous(memory_format=torch.channels_last):
+            return F.pixel_shuffle(x, r)
+        n, c, h, w = x.shape
+        shuffled = x.permute(0, 2, 3, 1).reshape(n, h, w, c // (r * r), r, r)
+        return shuffled.permute(0, 1, 4, 2, 5, 3).reshape(n, h * r, w * r, c // (r * r)).permute(
+            0, 3, 1, 2)
     return spatial.rows_op(x, spatial.height(x) * r, lambda lo, hi: (lo // r, (hi - 1) // r + 1),
                            lambda block: F.pixel_shuffle(block, r), lambda a: a * r)
 

@@ -599,3 +599,126 @@ def test_aspp_conv_path_keeps_off_cudnn_direct_kernel(cuda_device):
     kernels = [e.key for e in prof.key_averages() if e.device_type.name == "CUDA"]
     assert kernels and not [k for k in kernels if "direct_kernel" in k]
     assert y.is_contiguous()
+
+
+# (variant, N, C, H, W): the conv epilogue at shapes the main paths launch it at.
+# PMF-KITTI's lidar stream at full resolution (32 and 64 channels), a 256-channel
+# 1/8 map, the 20-class logits, the stem's relu, the first fusion block's
+# attention, ResNet34's and ResNet50's widest blocks (layer4's relu(out + x)),
+# and one keyframe item at 896x1600 (its lidar context block, its 17-class
+# logits: C not a multiple of 8)
+EPILOGUE_SHAPES = {
+    "pmf_context_32": ("leaky_relu_bn_residual", 8, 32, 384, 1232),
+    "pmf_resblock1_64": ("leaky_relu_bn", 8, 64, 384, 1232),
+    "pmf_resblock4_256": ("leaky_relu_bn_residual", 8, 256, 48, 154),
+    "pmf_logits_20": ("bias", 8, 20, 384, 1232),
+    "r34_stem_relu": ("relu", 8, 64, 384, 1232),
+    "fusion1_sigmoid": ("sigmoid", 8, 64, 192, 616),
+    "r34_layer4": ("residual_relu", 8, 512, 24, 77),
+    "r50_layer4_keyframe": ("residual_relu", 1, 2048, 56, 100),
+    "keyframe_context_32": ("leaky_relu_bn_residual", 1, 32, 896, 1600),
+    "keyframe_logits_17": ("bias", 1, 17, 896, 1600),
+}
+EPILOGUE_VARIANTS = {"bias": (None, False, False, None), "relu": ("relu", False, False, None),
+                     "sigmoid": ("sigmoid", False, False, None),
+                     "leaky_relu_bn": ("leaky_relu", True, False, None),
+                     "leaky_relu_bn_residual": ("leaky_relu", True, True, None),
+                     "residual_relu": (None, False, True, "relu")}
+
+
+def epilogue_operands(dev, variant, nb, c, h, w, seed):
+    """A conv output y (bf16, channels-last), the float32 bias, BN's a and b
+    (or None), a residual (or None) and the post, on `dev`."""
+    act, with_bn, with_res, post = EPILOGUE_VARIANTS[variant]
+    g = torch.Generator().manual_seed(seed)
+    cl = torch.channels_last
+    y = (torch.randn(nb, c, h, w, generator=g) * 2).to(dev, torch.bfloat16).contiguous(
+        memory_format=cl)
+    bias = (torch.randn(c, generator=g) * 0.5).to(dev)
+    a = (torch.rand(c, generator=g) + 0.5).to(dev) if with_bn else None
+    b = (torch.randn(c, generator=g) * 0.1).to(dev) if with_bn else None
+    res = torch.randn(nb, c, h, w, generator=g).to(dev, torch.bfloat16).contiguous(
+        memory_format=cl) if with_res else None
+    return y, bias, act, a, b, res, post
+
+
+def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest |got - want| in bf16 ulps of each element of want (ulps of
+    the smallest normal at 0)."""
+    w = want.float().abs().clamp_min(2.0 ** -126)
+    return ((got.float() - want.float()).abs() / torch.exp2(torch.floor(torch.log2(w)) - 7)
+            ).max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", EPILOGUE_SHAPES.values(), ids=EPILOGUE_SHAPES.keys())
+def test_conv_epilogue_kernel_matches_twin(cuda_device, shape):
+    """The epilogue kernel in place on y against its plain twin on the same
+    card tensors: within 1 bf16 ulp of each element (both take the same
+    float32 ops in the same order and round once; sigmoid's expf is the
+    one op whose last bit may differ), the residual untouched, one launch."""
+    from pmf_tpu_torch.ops import epilogue
+
+    variant, nb, c, h, w = shape
+    y, bias, act, a, b, res, post = epilogue_operands(cuda_device, variant, nb, c, h, w, c + h)
+    res_before = None if res is None else res.clone()
+    want = epilogue.conv_epilogue_plain(y.clone(), bias, act, a, b, res, post)
+    launches = epilogue.conv_epilogue.launches
+    got = epilogue.conv_epilogue(y, bias, act, a, b, res, post)
+    torch.cuda.synchronize()
+    assert got is y and epilogue.conv_epilogue.launches == launches + 1
+    assert bf16_ulps(got, want) <= 1.0
+    if act != "sigmoid":
+        assert torch.equal(got, want)
+    assert res is None or torch.equal(res, res_before)
+
+
+@pytest.mark.cuda
+def test_conv_epilogue_launches_per_eval_call(cuda_device):
+    """One bf16 eval call of PMFNet-ResNet34 passes each of its 105 convs'
+    epilogues through the kernel, one of EPMFNet-ResNet34 99, one of
+    PMFNet-ResNet50 122 (the counts of tests/test_torch_epilogue.py: the
+    maps stay channels-last on the card); with grad on, none."""
+    from pmf_tpu_torch.models import EPMFNet, PMFNet, random_weights
+    from pmf_tpu_torch.ops import epilogue
+
+    g = torch.Generator().manual_seed(0)
+    pcd = torch.randn(2, 64, 256, 5, generator=g).to(cuda_device)
+    img = torch.rand(2, 64, 256, 3, generator=g).to(cuda_device)
+    for net, backbone, want in ((PMFNet, "resnet34", 105), (EPMFNet, "resnet34", 99),
+                                (PMFNet, "resnet50", 122)):
+        model = random_weights(net(nclasses=20, base_channels=32, image_backbone=backbone,
+                                   dtype=torch.bfloat16), seed=1).to(cuda_device)
+        epilogue.conv_epilogue.launches = 0
+        with torch.inference_mode():
+            model(pcd, img)
+        assert epilogue.conv_epilogue.launches == want
+        model(pcd, img)
+        assert epilogue.conv_epilogue.launches == want
+
+
+@pytest.mark.cuda
+def test_conv_epilogue_kernel_refuses_other_variants(cuda_device):
+    """The library holds a kernel for each variant of ops/epilogue.py's
+    VARIANTS alone: its entry point refuses any other (act, BN, residual,
+    post), and leaves y as it was."""
+    from pmf_tpu_torch.ops import epilogue, kernels
+
+    y, bias, _, a, b, res, _ = epilogue_operands(cuda_device, "leaky_relu_bn_residual", 2, 16,
+                                                 4, 6, 0)
+    before = y.clone()
+    p = lambda t: None if t is None else t.data_ptr()
+    for act in epilogue.ACTS:
+        for bn in (False, True):
+            for r in (None, res):
+                for post in epilogue.POSTS:
+                    if (act, bn, r is not None, post) in epilogue.VARIANTS:
+                        continue
+                    with pytest.raises(RuntimeError):
+                        kernels.launch("pmf_conv_epilogue", y.device, y.data_ptr(), p(r),
+                                       bias.data_ptr(), p(a if bn else None),
+                                       p(b if bn else None), y.numel() // 16, 16,
+                                       epilogue.ACTS[act], epilogue.POSTS[post],
+                                       kernels.sms(y.device))
+    torch.cuda.synchronize()
+    assert torch.equal(y, before)

@@ -100,7 +100,8 @@ def test_conv_bn_fold_matches_jax(kernel, stride, padding, dilation, use_bias, a
         bn.running_mean.copy_(torch.from_numpy(mean))
         bn.running_var.copy_(torch.from_numpy(var))
         acts = {"relu": torch.relu, "leaky": tl.leaky_relu, None: None}
-        got = tl.conv_bn(nchw(x), conv, bn.eval(), acts[act])
+        names = {"relu": "relu", "leaky": "leaky_relu", None: None}
+        got = tl.conv_bn(nchw(x), conv, bn.eval(), names[act])
         unfolded = bn(conv(nchw(x)))
         if acts[act] is not None:
             unfolded = acts[act](unfolded)
