@@ -156,22 +156,17 @@ Phases, each of which ends the run with a non-zero exit on failure:
      points) and with remat; (c) parallel/dryrun.py's small step in float64
      at model 2 equal to one process; both kernels launched
      (`launches_split`, the two ranks' counts over (a) and (b));
- 13. remat and the FLOP accounting (`remat_phase`): (a) the PMF Trainer of
-     6(c) and the EPMF Trainer of 7(d) without and with the config's
-     `remat`, peak memory, ms/step and the loss terms within 1e-4, and the
-     float32 PMF nuScenes step of 12(b) without and with it; (b) a float64
-     PMF step on one full-width train item with remat equal to the step
-     without it (gradients 1e-10 of their norm, BN statistics and the
-     generator's state equal); (c) the same under phase 12's split; (d)
-     utils/flops.py's count of the PMF eval batch and train step, and the
-     MFU of phase 5's and 6(c)'s rates against the bf16 peak; (e) the
-     Trainer's `profile_dir` trace: one file, train iterations 2-4, CUDA
-     kernel events;
- 14. the bench (`python -m pmf_tpu_torch.tools.bench`) in a fresh process:
-     its four phases (the cells pmf_r34_kitti_eval_b8 and
-     pmf_r34_kitti_train_b8, and EPMF eval and train) at a short length (2
-     repeats of 2 timed calls), every gate passing, and each phase's line
-     parsed with every field set;
+ 13. remat (`remat_phase`): (a) the PMF Trainer of 6(c) and the EPMF
+     Trainer of 7(d) without and with the config's `remat`, peak memory,
+     ms/step and the loss terms within 1e-4, and the float32 PMF nuScenes
+     step of 12(b) without and with it; (b) a float64 PMF step on one
+     full-width train item with remat equal to the step without it
+     (gradients 1e-10 of their norm, BN statistics and the generator's
+     state equal); (c) the same under phase 12's split; (e) the Trainer's
+     `profile_dir` trace: one file, train iterations 2-4, CUDA kernel
+     events (there is no 13(d) and no phase 14: the benchmark's cells and
+     its `mfu.*` metrics measure what they printed, and the other phases
+     keep their numbers);
  15. ASPP's branch kernel at every shape the paths above ran it at
      (phases 5-13, as `AsppWatch` recorded them: the KITTI, nuScenes and
      A2D2 eval batches, the per-scan loops, the Trainers' validation),
@@ -192,7 +187,6 @@ import os
 import re
 import shutil
 import statistics
-import subprocess
 import sys
 import time
 
@@ -729,7 +723,7 @@ def hold_card_to_cpu(dev, tag: str, view, model, forward=fusion_forward):
           f"classes")
 
 
-def main_path(dev, cfg, batch, raw, smi, timing: dict | None = None):
+def main_path(dev, cfg, batch, raw, smi):
     from pmf_tpu_torch.config import Options
     from pmf_tpu_torch.data import build_batch
     from pmf_tpu_torch.data.perspective_pipeline import _build_batch
@@ -744,19 +738,17 @@ def main_path(dev, cfg, batch, raw, smi, timing: dict | None = None):
                    config={"sensor": sensor, "post": {"KNN": {"params": {
                        "knn": 5, "search": 5, "sigma": 1.0, "cutoff": 1.0}}}})
     return eval_path(dev, "[main]", "build_batch+PMFNet+argmax", model, opts, build_batch,
-                     _build_batch, cfg, batch, raw, (H, W), smi, timing)
+                     _build_batch, cfg, batch, raw, (H, W), smi)
 
 
 def eval_path(dev, tag, name, model, opts, build, build_with_fill, cfg, batch, raw, size, smi,
-              timing: dict | None = None, aspp_per_call: int = 1,
-              epilogue_per_call: int = EPILOGUES["PMFNet"]):
+              aspp_per_call: int = 1, epilogue_per_call: int = EPILOGUES["PMFNet"]):
     """Batched eval (`build` → `model` → argmax) and one scan through the
     Inference.run loop (KNN on), with both kernels' launch counts read
     around them, the ASPP kernel's around one batched call and the scan
     (each must be `aspp_per_call`) and the conv epilogue's likewise (each
     `epilogue_per_call`: one a conv); the batched path against the same with
-    the plain fill; its scans/s (also to `timing["scans_s"]` when given).
-    Returns the launch counts."""
+    the plain fill; its scans/s. Returns the launch counts."""
     from pmf_tpu_torch.ops import argmax_last, aspp, epilogue, rasterize
     from pmf_tpu_torch.tools.infer_kitti import Inference
 
@@ -828,8 +820,6 @@ def eval_path(dev, tag, name, model, opts, build, build_with_fill, cfg, batch, r
             times.append(time.perf_counter() - t0)
         profile_step(lambda: batched(cfg), smi, name=f"eval batch ({name})")
     med = statistics.median(times)
-    if timing is not None:
-        timing["scans_s"] = b / med
     print(f"{tag} batched eval {name}, batch {b}, {h}x{w}, bf16: "
           f"{b / med:.2f} scans/s (median of {len(times)} batches: {med * 1e3:.2f} ms, "
           f"min {min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}) on {smi}")
@@ -2743,15 +2733,13 @@ def split_phase(dev, smi) -> dict:
     return launches, r0
 
 
-def remat_trainer(dev, opts, raw, remat: bool, size, count: bool = False) -> dict:
+def remat_trainer(dev, opts, raw, remat: bool) -> dict:
     """The Trainer of `opts` (random weights from a seed) on the in-memory
     samples `raw`, with `remat` or without: epoch 0's means of the loss
-    terms (2 steps), ms/step over 4 more steps (host-inclusive), the peak
-    device memory over the 6, and with `count` the FLOPs of one train step
-    (`utils.count_flops`)."""
+    terms (2 steps), ms/step over 4 more steps (host-inclusive) and the peak
+    device memory over the 6."""
     from pmf_tpu_torch.models import build_model, random_weights
     from pmf_tpu_torch.train import Trainer
-    from pmf_tpu_torch.utils import count_flops
 
     opts = copy.deepcopy(opts)
     opts.config["remat"] = remat
@@ -2772,12 +2760,6 @@ def remat_trainer(dev, opts, raw, remat: bool, size, count: bool = False) -> dic
            "losses": {k: v for k, v in first.items() if k.startswith(("loss", "Loss"))}}
     if not all(np.isfinite(v) for v in out["losses"].values()):
         fail(f"[remat] (a) non-finite losses {first}")
-    if count:
-        x = {k: torch.from_numpy(a).to(dev) for k, a in next(trainer.batches("Train", 0)).items()}
-        f, lab, pts = trainer.view(x, True)
-        if f.shape[1:3] != size:
-            fail(f"[remat] (d) the train view is {tuple(f.shape)}")
-        out["flops"] = count_flops(trainer.train_step, f, lab, trainer.generator, pts)
     del trainer, model
     torch.cuda.empty_cache()
     return out
@@ -2851,31 +2833,23 @@ def profile_dir_run(dev) -> dict:
     return out
 
 
-def remat_phase(dev, smi, timing: dict, split: dict) -> None:
-    """Phase 13: remat and the FLOP accounting on the card. (a) the PMF
-    Trainer at 6(c)'s shapes (bf16, batch 8, 256x1024) and the EPMF Trainer
-    at 7(d)'s (batch 2, 320x1280), each without and with `remat`: peak
-    memory, ms/step, and epoch 0's loss terms within 1e-4 of each other;
+def remat_phase(dev, smi, split: dict) -> None:
+    """Phase 13: remat on the card. (a) the PMF Trainer at 6(c)'s shapes
+    (bf16, batch 8, 256x1024) and the EPMF Trainer at 7(d)'s (batch 2,
+    320x1280), each without and with `remat`: peak memory, ms/step, and
+    epoch 0's loss terms within 1e-4 of each other;
     the float32 PMF nuScenes step of 12(b) (batch 3, 640x960) without and
     with remat, from phase 12's unsplit runs; (b) remat_float64_item:
     gradients within 1e-10 of their norm, BN statistics and the generator's
     state equal; (c) from phase 12's two gloo ranks (data 1 x model 2): the
     float64 split step on the train batch's first item with remat against
-    without, gradients, losses and BN variances within 1e-10; (d) the FLOPs
-    of the PMF eval batch (384x1232, batch 8, on `meta` tensors) and of the
-    PMF train step (from (a)), and the MFU of phase 5's scans/s and 6(c)'s
-    ms/step against the H100's bf16 peak; (e) profile_dir_run: one trace
-    file with train iterations 2-4 and CUDA kernel events."""
-    from pmf_tpu_torch.models import PMFNet, random_weights
-    from pmf_tpu_torch.utils import H100_BF16_PEAK_FLOPS, count_flops, mfu
-
+    without, gradients, losses and BN variances within 1e-10; (e)
+    profile_dir_run: one trace file with train iterations 2-4 and CUDA
+    kernel events."""
     t0 = time.perf_counter()
-    runs = {}
     for name, (opts, raw), size in (("PMF", pmf_train_setup(), (TH, TW)),
                                     ("EPMF", epmf_train_setup(), (HE, WE))):
-        runs[name] = [remat_trainer(dev, opts, raw, remat, size, count=name == "PMF")
-                      for remat in (False, True)]
-        off, on_ = runs[name]
+        off, on_ = remat_trainer(dev, opts, raw, False), remat_trainer(dev, opts, raw, True)
         err = max(abs(on_["losses"][k] - v) / max(abs(v), 1e-30) for k, v in off["losses"].items())
         bt = opts.batch_size[0]
         print(f"[remat] (a) {name}-ResNet34 Trainer bf16, batch {bt}, {size[0]}x{size[1]}: "
@@ -2911,26 +2885,6 @@ def remat_phase(dev, smi, timing: dict, split: dict) -> None:
     if not (c["grads"][1] <= 1e-10 and c["losses"] <= 1e-10 and c["var"] <= 1e-10):
         fail("[remat] (c) the split step with remat differs from the split step without it")
 
-    torch.manual_seed(0)
-    model = random_weights(PMFNet(nclasses=20, base_channels=32, dtype=torch.bfloat16),
-                           seed=0).eval().to("meta")
-    eval_flops = count_flops(model, torch.zeros(B, H, W, 5, device="meta"),
-                             torch.zeros(B, H, W, 3, device="meta"))
-    train_flops = runs["PMF"][0]["flops"]
-    remat_flops = runs["PMF"][1]["flops"]
-    eval_rate = eval_flops / B * timing["scans_s"]
-    train_rate = train_flops / (timing["ms_step"] / 1e3)
-    print(f"[remat] (d) FLOPs (utils/flops.py, pmf_tpu's count): PMF-ResNet34 eval batch {B}, "
-          f"{H}x{W}: {eval_flops / 1e12:.4f} TFLOP ({eval_flops / B / 1e9:.2f} GFLOP/scan); "
-          f"train step batch {B}, {TH}x{TW}: {train_flops / 1e12:.4f} TFLOP, with remat "
-          f"{remat_flops / 1e12:.4f} (+{(remat_flops / train_flops - 1) * 100:.1f} %) on {smi}")
-    print(f"[remat] (d) MFU against {H100_BF16_PEAK_FLOPS / 1e12:.0f} TFLOP/s bf16: eval "
-          f"{timing['scans_s']:.2f} scans/s (phase 5) = {eval_rate / 1e12:.2f} TFLOP/s, MFU "
-          f"{mfu(eval_rate):.4f}; train {timing['ms_step']:.2f} ms/step (6(c)) = "
-          f"{train_rate / 1e12:.2f} TFLOP/s, MFU {mfu(train_rate):.4f} on {smi}")
-    if not 0 < eval_flops < train_flops < remat_flops:
-        fail(f"[remat] (d) FLOPs eval {eval_flops}, train {train_flops}, remat {remat_flops}")
-
     e = profile_dir_run(dev)
     print(f"[remat] (e) Trainer with profile_dir: {len(e['files'])} trace file(s) {e['files']} "
           f"({e['bytes']} bytes), labels {e['labels']}, {e['kernels']} CUDA kernel events on "
@@ -2941,46 +2895,6 @@ def remat_phase(dev, smi, timing: dict, split: dict) -> None:
              "kernel events")
     print(f"[remat] phase 13 {time.perf_counter() - t0:.1f} s (phase 12's runs for (a) and (c) "
           "not included)")
-
-
-def bench_phase(smi) -> None:
-    """Phase 14: the bench's four phases at a short length in a fresh
-    process (the card's memory that this one caches is given back first):
-    it must exit 0, having passed every gate, and print one line a phase
-    with every field of the phase set (the cell is null on the EPMF phases,
-    and the profiler's fields only where the trace held no device time)."""
-    from pmf_tpu_torch.tools import bench
-
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "pmf_tpu_torch.tools.bench", "--phase",
-                           *bench.PHASES, "--iters", "2", "--repeats", "2"],
-                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
-                          text=True, timeout=400)
-    if proc.returncode:
-        fail(f"[bench] the bench exited {proc.returncode}:\n{proc.stdout[-2000:]}"
-             f"{proc.stderr[-4000:]}")
-    lines = {}
-    for text in proc.stdout.splitlines():
-        line = json.loads(text)
-        lines[line["phase"]] = line
-    for name, phase in bench.PHASES.items():
-        line = lines.get(name)
-        if line is None or list(line) != list(phase.fields()):
-            fail(f"[bench] no line of phase {name}, or another set of fields: {line}")
-        unset = [k for k, v in line.items() if v is None and not (
-            k == "cell" or line["profiler"] != "torch.profiler"
-            and k in ("idle_share", "busy_ms", "top_ops"))]
-        if unset:
-            fail(f"[bench] {name}: fields unset on the card: {unset}")
-        kernels_ = ", ".join(f"{k} {line[k + '_device_ms']:.5g} ms device (bound share "
-                             f"{line[k + '_bound_share']:.3f}, {line[k + '_launches']:g} a call)"
-                             for k in bench.KERNELS)
-        print(f"[bench] {name}: {line['value']:.2f} scans/s (spread {line['spread']:.3f} over "
-              f"{line['repeats']}x{line['iters']} calls), {line[phase.flops_key]:.2f} GFLOP/scan, "
-              f"MFU {line['mfu_' + name]:.4f}, peak {line[name + '_peak_mem_gib']:.2f} GiB, idle "
-              f"share {line['idle_share']}, {kernels_}; gates {json.dumps(line['gates'])} on {smi}")
-    print(f"[bench] phase 14 {time.perf_counter() - t0:.1f} s (a fresh process)")
 
 
 def main():
@@ -3016,7 +2930,7 @@ def main():
     AsppWatch.install()
     check_reference(dev)
     timing: dict = {}
-    launches = main_path(dev, cfg, batch, raw, smi, timing)
+    launches = main_path(dev, cfg, batch, raw, smi)
     check_train_view(dev, batch)
     check_train_reference(dev)
     launches_train = full_width_train(dev, smi, timing)
@@ -3053,15 +2967,13 @@ def main():
     t_split = time.perf_counter()
     launches_split, split = split_phase(dev, smi)
     t_remat = time.perf_counter()
-    remat_phase(dev, smi, timing, split)
-    t_bench = time.perf_counter()
-    bench_phase(smi)
+    remat_phase(dev, smi, split)
     t_seen = time.perf_counter()
     aspp_seen = check_aspp_seen(dev)
     print(f"[time] phases 1-7 {t_range - t_run:.1f} s, phase 8 {t_nusc - t_range:.1f} s, phase 9 "
           f"{t_a2d2 - t_nusc:.1f} s, phase 10 {t_cli - t_a2d2:.1f} s, phase 11 "
           f"{t_split - t_cli:.1f} s, phase 12 {t_remat - t_split:.1f} s, phase 13 "
-          f"{t_bench - t_remat:.1f} s, phase 14 {t_seen - t_bench:.1f} s, phase 15 "
+          f"{t_seen - t_remat:.1f} s, phase 15 "
           f"{time.perf_counter() - t_seen:.1f} s (the build included in phase 2)")
     range_keys = ("range_max_abs_err", "range_ms", "range_device_ms", "range_plain_ms",
                   "range_bound_ms", "range_bound_by", "range_library_ms")

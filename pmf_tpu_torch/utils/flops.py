@@ -43,9 +43,6 @@ aten = torch.ops.aten
 
 # NVIDIA's data sheet for the H100 SXM, dense, at the 700 W power limit
 H100_BF16_PEAK_FLOPS = 989e12
-# float32 outside the tensor cores: the port's float32 convolutions run there,
-# since utils.disable_tf32 keeps cuDNN off TF32
-H100_F32_PEAK_FLOPS = 67e12
 
 
 def _conv_backward(grad_out_shape, x_shape, w_shape, _bias, _stride, _padding, _dilation,

@@ -9,8 +9,8 @@ what K2 and K1 must move: each input read once, each output written once.
 `rasterize_numbers` and `keys_numbers` give a kernel's times on its inputs
 beside its plain version's, the library call's and its bound.
 
-Used by `tools/bench.py`, `tools/turns.py` and `chip_smoke.py`; everything
-here needs a card but the byte counts and `bound_ms`.
+Used by `chip_smoke.py`'s kernel table; everything here needs a card but
+the byte counts and `bound_ms`.
 """
 from __future__ import annotations
 

@@ -34,21 +34,12 @@ from tests.test_a2d2 import _make_mini_a2d2
 from tests.test_torch_epmf import pallas_interpret  # noqa: F401 (a fixture)
 from tests.test_torch_infer_kitti import _TemplateInit
 from tests.test_torch_models import _numpy_sd
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 PIX_KEYS = ("points", "labels", "valid", "rows", "cols", "image", "img_h", "img_w")
 CFG = dict(canvas_h=96, canvas_w=128, proj_h=64, proj_w=96, proj_ht=64, proj_wt=96,
            n_points=512, img_mean=(17.95, 16.17, -0.17, 1.23, 18.49),
            img_stds=(24.0, 23.55, 8.06, 3.96, 21.45))
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """torch on one thread: the suite runs several test processes side by
-    side on the cores (see tests/test_torch_train.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -10,6 +10,7 @@ import torch.nn.functional as F
 from pmf_tpu_torch.models import pmf as pmf_models
 from pmf_tpu_torch.ops import aspp as A
 from pmf_tpu_torch.parallel import spatial
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 DIL = (6, 12, 18)
 

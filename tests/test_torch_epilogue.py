@@ -12,6 +12,7 @@ from pmf_tpu_torch.models import layers as L
 from pmf_tpu_torch.models import pmf as pmf_models
 from pmf_tpu_torch.ops import epilogue as E
 from pmf_tpu_torch.ops.resize import pixel_shuffle
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 # (act, BN after it, residual, post): each variant a call site of the nets takes,
 # and the remaining activations

@@ -31,22 +31,13 @@ from pmf_tpu_torch.tools import infer_kitti
 from tests.test_data_pipeline import make_synthetic_kitti
 from tests.test_torch_infer_kitti import _TemplateInit, _labels
 from tests.test_torch_models import _check_probs, _numpy_sd, random_flax_tree, save_flat_flax_npz
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 CFG = dict(canvas_h=64, canvas_w=160, proj_h=64, proj_w=128, proj_ht=64, proj_wt=128,
            n_points=1024)
 VIEW_KEYS = ("points", "labels", "valid", "proj_matrix", "image", "img_h", "img_w")
 EPMF_KITTI = os.path.join(os.path.dirname(__file__), "..", "configs", "experiments",
                           "epmf_kitti.yaml")
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """torch on one thread: the suite runs several test processes side by
-    side on the cores (see tests/test_torch_train.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

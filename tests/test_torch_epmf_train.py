@@ -27,16 +27,7 @@ from pmf_tpu_torch.tools import train as train_cli
 from tests.test_data_pipeline import make_synthetic_kitti
 from tests.test_torch_epmf import CFG, VIEW_KEYS, _jax_draws
 from tests.test_torch_train import _named_grads, _ThreeStreams
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """torch on one thread: the suite runs several test processes side by
-    side on the cores (see tests/test_torch_train.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_multi_task_loss_matches_jax():

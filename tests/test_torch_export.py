@@ -18,6 +18,7 @@ from pmf_tpu.train.checkpoint import CheckpointManager
 from pmf_tpu.train.state import TrainState
 from pmf_tpu_torch import models as tmodels
 from tests.test_torch_models import _numpy_sd
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 SCRIPT = os.path.join(os.path.dirname(__file__), "..", "scripts", "export_flax_npz.py")
 

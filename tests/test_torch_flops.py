@@ -23,8 +23,9 @@ from pmf_tpu.utils import flops as jflops
 from pmf_tpu_torch import data as tdata
 from pmf_tpu_torch import models as tmodels
 from pmf_tpu_torch import train as ttrain
-from pmf_tpu_torch.utils import count_flops, mfu
-from tests.test_torch_train import CFG, _aug, kitti_samples, one_torch_thread  # noqa: F401
+from pmf_tpu_torch.utils.flops import count_flops, mfu
+from tests.test_torch_train import CFG, _aug, kitti_samples  # noqa: F401
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 # x [N, C, H, W], w [Cout, Cin/groups, kh, kw], stride, padding, groups, and
 # the hand counts: 2 · out_elems · kh·kw·cin/groups forward; the input's

@@ -19,6 +19,7 @@ from pmf_tpu_torch.utils import tables as ttables
 from pmf_tpu.utils import tables as jtables
 from tests.test_data_pipeline import make_synthetic_kitti
 from tests.test_torch_models import save_flat_flax_npz
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 N_SCANS = 2
 

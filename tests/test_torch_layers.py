@@ -15,6 +15,7 @@ from pmf_tpu.ops import resize as jresize
 from pmf_tpu_torch.models import layers as tl
 from pmf_tpu_torch.ops import reduce as treduce
 from pmf_tpu_torch.ops import resize as tresize
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 

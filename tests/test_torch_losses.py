@@ -11,6 +11,7 @@ from pmf_tpu import losses as jl
 from pmf_tpu.ops import scatter as jscatter
 from pmf_tpu_torch import losses as tl
 from pmf_tpu_torch.ops import scatter as tscatter
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 C = 20
 TOL = dict(rtol=1e-5, atol=1e-5)

@@ -11,6 +11,7 @@ import torch
 from pmf_tpu import models as jmodels
 from pmf_tpu.models.torch_convert import convert_generic_state_dict, convert_pmf_state_dict
 from pmf_tpu_torch import models as tmodels
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 H, W = 32, 96
 

@@ -43,6 +43,7 @@ from pmf_tpu_torch.train import Trainer
 from tests.test_nuscenes import _make_mini_nuscenes
 from tests.test_torch_infer_kitti import _TemplateInit
 from tests.test_torch_models import _numpy_sd
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 CONFIGS = os.path.join(os.path.dirname(__file__), "..", "configs", "experiments")
 VIEW_KEYS = ("points", "labels", "valid", "proj_matrix", "image", "img_h", "img_w")
@@ -52,16 +53,6 @@ SENSOR = dict(canvas_h=224, canvas_w=400, proj_h=64, proj_w=128, proj_ht=64, pro
 VIEW = dict(SENSOR, proj_h=224, proj_w=400, proj_ht=128, proj_wt=256)   # the whole image
 MEAN, STDS = [12.12, 10.88, 0.23, -1.04, 0.21], [12.32, 11.47, 6.91, 0.86, 0.16]
 KNN = {"KNN": {"params": {"knn": 5, "search": 5, "sigma": 1.0, "cutoff": 1.0}}}
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """torch on one thread: the suite runs several test processes side by
-    side on the cores (see tests/test_torch_train.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _quat(rot) -> list:

@@ -11,7 +11,6 @@ import sys
 from pathlib import Path
 
 import numpy as np
-import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
@@ -24,6 +23,7 @@ from pmf_tpu_torch.config import Options  # noqa: E402
 from pmf_tpu_torch.data import PVConfig, build_eval_sample_with_uproj  # noqa: E402
 from pmf_tpu_torch.models import PMFNet  # noqa: E402
 from pmf_tpu_torch.tools.infer_nuscenes import N_CAMERAS, NuscenesInference  # noqa: E402
+from tests.torch_threads import one_torch_thread  # noqa: E402, F401
 
 SEED = 2**31 + 17
 H, W, N, RETURNS, C = 64, 160, 2048, 1500, 17
@@ -31,14 +31,6 @@ SENSOR = {"canvas_h": H, "canvas_w": W, "proj_h": H, "proj_w": W, "h_pad": 0, "w
           "n_points": N}
 ITEM_PARTS = ["pmf.keyframe.read", "pmf.keyframe.h2d", "pmf.view", "pmf.model",
               "pmf.keyframe.lift", "pmf.keyframe.readback", "pmf.keyframe.merge"]
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def pool(n_frames: int, seed: int = SEED) -> list[dict]:

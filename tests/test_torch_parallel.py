@@ -7,6 +7,7 @@ import torch
 
 from pmf_tpu_torch import parallel
 from pmf_tpu_torch.parallel import dryrun, mesh
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -20,6 +20,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from tests.torch_threads import one_torch_thread  # noqa: E402, F401
+
 REF = "/root/reference/pc_processor/models"
 
 

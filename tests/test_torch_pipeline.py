@@ -21,6 +21,7 @@ from pmf_tpu_torch.metrics import iou as tiou
 from pmf_tpu_torch.ops import knn as tknn
 from pmf_tpu_torch.ops import projection as tproj
 from tests.test_data_pipeline import make_synthetic_kitti
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 CFG = dict(canvas_h=64, canvas_w=160, proj_h=64, proj_w=160, h_pad=2, w_pad=2,
            n_points=1024)

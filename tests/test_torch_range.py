@@ -34,21 +34,12 @@ from tests.test_torch_epmf import _Stop, _jax_draws, _stop, pallas_interpret, sa
 from tests.test_torch_epmf import CFG as V2_CFG
 from tests.test_torch_train import CFG as PV_CFG
 from tests.test_torch_train import kitti_samples  # noqa: F401
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 SALSANEXT_KITTI = os.path.join(os.path.dirname(__file__), "..", "configs", "experiments",
                                "salsanext_kitti.yaml")
 H, W = 16, 128
 AUG = load_options(SALSANEXT_KITTI).group("augmentation")   # the yaml's, reversed yaw included
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """torch on one thread: the suite runs several test processes side by
-    side on the cores (see tests/test_torch_train.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def scans(seed: int, b: int, n: int):

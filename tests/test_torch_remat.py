@@ -23,9 +23,9 @@ from pmf_tpu_torch import models as tmodels
 from pmf_tpu_torch import train as ttrain
 from pmf_tpu_torch.losses import init_multi_task_params
 from pmf_tpu_torch.parallel import dryrun
-from pmf_tpu_torch.utils import count_flops
-from tests.test_torch_train import (CFG, _aug, _named_grads, kitti_samples,  # noqa: F401
-                                    one_torch_thread)
+from pmf_tpu_torch.utils.flops import count_flops
+from tests.test_torch_train import CFG, _aug, _named_grads, kitti_samples  # noqa: F401
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module", autouse=True)

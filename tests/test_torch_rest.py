@@ -29,6 +29,7 @@ from pmf_tpu_torch.tools.create_fov_dataset import create_fov_dataset
 from pmf_tpu_torch.train import schedules as tsched
 from tests.test_data_pipeline import kitti_root  # noqa: F401 (a fixture)
 from tests.test_torch_models import random_flax_tree
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _nhwc(seed, shape=(2, 8, 10, 3), scale=1.0):

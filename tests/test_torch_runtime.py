@@ -34,19 +34,11 @@ from pmf_tpu_torch.tools import train as train_cli
 from pmf_tpu_torch.train import Recorder
 from pmf_tpu_torch.utils import logger as tlogger
 from tests.test_data_pipeline import make_synthetic_kitti
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 CFG = dict(canvas_h=64, canvas_w=160, proj_h=64, proj_w=160, proj_ht=48, proj_wt=96,
            h_pad=2, w_pad=2, n_points=1024)
 
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """torch on one thread: the suite runs several test processes side by
-    side on the cores (tests/test_torch_train.py says why)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 # ------------------------------------------------------------------ HostLoader
 

@@ -31,18 +31,9 @@ from tests.test_data_pipeline import make_synthetic_kitti
 from tests.test_torch_infer_kitti import _labels
 from tests.test_torch_losses import TOL, probs
 from tests.test_torch_range import SALSANEXT_KITTI, scans
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 H, W = 16, 128
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """torch on one thread: the suite runs several test processes side by
-    side on the cores (see tests/test_torch_train.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _numpy_sd(module):

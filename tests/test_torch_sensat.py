@@ -34,16 +34,7 @@ from pmf_tpu_torch.train import Trainer
 from tests.test_sensat import sensat_root  # noqa: F401 (a fixture)
 from tests.test_torch_a2d2 import _jax_trainer_data, jax_cli_weights
 from tests.test_torch_train import _ThreeStreams
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """torch on one thread: the suite runs several test processes side by
-    side on the cores (see tests/test_torch_train.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_ply_and_bev_feature_match_jax(tmp_path):

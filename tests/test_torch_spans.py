@@ -23,6 +23,7 @@ from pmf_tpu_torch.parallel import dryrun
 from pmf_tpu_torch.tools.infer_kitti import Inference
 from pmf_tpu_torch.train import HybridOptimizer, LossConfig, make_pmf_train_step
 from pmf_tpu_torch.utils import spans
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 STEP_PARTS = ["pmf.step.forward", "pmf.step.loss", "pmf.step.backward", "pmf.step.optimizer",
               "pmf.step.confusion"]
@@ -33,16 +34,6 @@ LIDAR_PARTS = {f"pmf.model.lidar_stream.{p}" for p in
                ("context", "encoder", "fusion", "head", "decoder")}
 EPMF_DECODER_PARTS = {"pmf.model.camera_decoder.lidar_upsample", "pmf.model.camera_decoder.aspp"}
 SCAN_KEYS = ("points", "labels", "valid", "proj_matrix", "image", "img_h", "img_w")
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """torch on one thread: the suite runs several test processes side by
-    side on the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def train_step(device):

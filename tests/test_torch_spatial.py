@@ -20,6 +20,7 @@ from pmf_tpu_torch import parallel
 from pmf_tpu_torch.parallel import dryrun, spatial
 from tests.test_data_pipeline import make_synthetic_kitti
 from tests.test_torch_train import CFG
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 NETS = list(dryrun.SPLIT_NETS)
 

@@ -34,6 +34,7 @@ from pmf_tpu_torch.models import layers as tlayers
 from pmf_tpu_torch.tools import infer_kitti
 from pmf_tpu_torch.tools import train as train_cli
 from tests.test_data_pipeline import make_synthetic_kitti
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 CFG = dict(canvas_h=64, canvas_w=160, proj_h=64, proj_w=160, proj_ht=48, proj_wt=96,
            h_pad=2, w_pad=2, n_points=1024)
@@ -43,18 +44,6 @@ FLIP = np.array([True, False, True])
 THETA = np.deg2rad(np.array([7.0, -11.0, 3.0])).astype(np.float32)
 TOP = np.array([3, 0, 16], np.int32)
 LEFT = np.array([5, 52, 0], np.int32)
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """Each test here runs torch on one thread. The suite runs several test
-    processes side by side on the cores; torch's parallel regions then wait
-    for each other's threads at every small operation, which made a train
-    step on this CPU tens of times slower than alone."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 class _JaxBN(fnn.Module):

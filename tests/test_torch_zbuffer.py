@@ -14,6 +14,7 @@ from pmf_tpu_torch.ops import rasterize as trast
 from pmf_tpu_torch.ops import scatter as tscatter
 from pmf_tpu_torch.ops import zbuffer as tzbuf
 from tests.test_torch_cuda import pix_keys_with_ties, points_case, points_with_ties
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_zbuffer_keys_plain_matches_pallas():
