@@ -36,7 +36,18 @@ Phases, each of which ends the run with a non-zero exit on failure:
      bound, the twin and PyTorch's chain of passes it replaced
      (`library_ms`). From here on every eval path below counts the conv
      epilogue's launches: one a conv in bf16 (105 a PMF-ResNet34 forward, 99
-     EPMF-ResNet34, 122 PMF-ResNet50, 51 SalsaNext), none in float32;
+     EPMF-ResNet34, 122 PMF-ResNet50, 51 SalsaNext), none in float32; (d)
+     the train-mode conv epilogue (ops/epilogue_train.py: batch-statistics
+     BN, activation, residual) at the seven shapes of the card test
+     (BN_TRAIN_SHAPES: the train cell's 64- and 32-channel full-resolution
+     maps, ResNet34's stem and layer4, the first fusion block's attention, a
+     downsample), forward and backward, held to its twin as the card test
+     holds it and timed: the Function host-inclusive, its four passes in a
+     CUDA graph, beside its bytes bound, the twin and PyTorch's chain. From
+     here on every eval path must launch it none, every Trainer's step
+     (`train_path`) four times a BN it takes in bf16 (376 PMF-ResNet34, 344
+     EPMF-ResNet34) and none in float32, and a Trainer with a process
+     group up (11(b)) none;
   4. reference: the port in float32 on the card against the port on the CPU
      (which the tests hold to pmf_tpu) at a small size, with random weights
      under which the probabilities depend on the input;
@@ -418,6 +429,12 @@ L2_PAST_BYTES = 200_000_000  # bytes through the card between two uses of a tens
 # the conv epilogue's launches an eval forward makes in bf16, one a conv
 # (tests/test_torch_epilogue.py: NETS); a float32 forward makes none
 EPILOGUES = {"PMFNet": 105, "EPMFNet": 99, "PMFNet-ResNet50": 122, "SalsaNext": 51}
+# the train-mode epilogue's launches a bf16 train step makes, four a BN it takes
+# (tests/test_torch_epilogue_train.py: TRAIN_NETS); a float32 step makes none
+BN_TRAIN_STEP = {"PMFNet": 4 * 94, "EPMFNet": 4 * 86}
+# bytes a train-mode epilogue moves an element, forward and backward (ops/epilogue_train.py)
+BN_TRAIN_BYTES = {"act_bn": 16, "act_bn_residual": 18, "bn_relu": 16, "bn_relu_bias": 16,
+                  "bn_sigmoid_bias": 16, "bn": 16, "bn_residual_relu": 22}
 
 
 def bf16_ulp(v: float) -> float:
@@ -530,6 +547,16 @@ def epilogue_chain(y, bias, act, a, b, res, post):
     return layers._ACTS[post](y)
 
 
+def load_card_tests():
+    """tests/test_torch_cuda.py as a module, loaded by its path: a `tests`
+    package installed elsewhere would shadow the repository's folder."""
+    spec = importlib.util.spec_from_file_location("test_torch_cuda", os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "tests", "test_torch_cuda.py"))
+    card_tests = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(card_tests)
+    return card_tests
+
+
 def check_epilogue(dev, smi) -> list:
     """3(c): the conv epilogue kernel at each of the card test's
     EPILOGUE_SHAPES (tests/test_torch_cuda.py), in place on y, held to its
@@ -543,11 +570,7 @@ def check_epilogue(dev, smi) -> list:
     shape."""
     from pmf_tpu_torch.ops import epilogue
     from pmf_tpu_torch.utils.timing import HBM_BYTES_PER_S, device_ms, time_ms
-    # by path: a `tests` package installed elsewhere would shadow the repository's folder
-    spec = importlib.util.spec_from_file_location("test_torch_cuda", os.path.join(
-        os.path.dirname(os.path.abspath(__file__)), "tests", "test_torch_cuda.py"))
-    card_tests = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(card_tests)
+    card_tests = load_card_tests()
 
     rows = []
     for i, (label, (variant, nb, c, h, w)) in enumerate(card_tests.EPILOGUE_SHAPES.items()):
@@ -594,6 +617,98 @@ def check_epilogue(dev, smi) -> list:
         del y, res, copies, kernel
         torch.cuda.empty_cache()
     return rows
+
+
+def bn_train_chain(family, act, post, yb, res, gout, bn):
+    """PyTorch's chain as the nets ran a train-mode BN before the kernels,
+    forward and backward: on the conv's output with its bias (bf16),
+    conv_block's BN(act(y)) + residual or conv_bn's post(act(BN(y)) +
+    residual)."""
+    from pmf_tpu_torch.models import layers
+
+    y = yb.clone().requires_grad_()
+    r = None if res is None else res.clone().requires_grad_()
+    out = layers._chain(y, act, bn, r, post) if family == "act_bn" else \
+        layers._chain(bn(y), act, None, r, post)
+    out.backward(gout)
+
+
+def check_epilogue_train(dev, smi) -> list:
+    """3(d): the train-mode conv epilogue (ops/epilogue_train.py) at each of
+    the card test's BN_TRAIN_SHAPES (tests/test_torch_cuda.py), forward and
+    backward, held to its plain twin on the same card tensors as the card
+    test holds it (`bn_train_gaps`); timed: `ms` the autograd Function's
+    forward and backward (CUDA events, host-inclusive), `device_ms` its
+    four passes alone in a CUDA graph, cycling through copies of y so that
+    200 MB pass between two uses of one; its bound (the bytes of
+    BN_TRAIN_BYTES at 3.35 TB/s), the twin (`plain_ms`) and PyTorch's chain
+    as the nets ran it (`library_ms`, forward and backward, CUDA events).
+    Returns one dict of numbers a shape."""
+    from pmf_tpu_torch.models import layers
+    from pmf_tpu_torch.ops import epilogue_train as T
+    from pmf_tpu_torch.utils.timing import HBM_BYTES_PER_S, device_ms, time_ms
+    card_tests = load_card_tests()
+
+    rows = []
+    for label, (case, nb, c, h, w) in card_tests.BN_TRAIN_SHAPES.items():
+        family, act, _, post, _ = card_tests.BN_TRAIN_CASES[case]
+        ops = card_tests.bn_train_operands(dev, case, nb, c, h, w, 90 + c)
+        y, gout, bias, res, gamma, beta, running = ops
+        want = card_tests.bn_train_run(T.bn_epilogue_plain, case, *ops)
+        got = card_tests.bn_train_run(T.bn_epilogue, case, *ops)
+        torch.cuda.synchronize()
+        gaps = card_tests.bn_train_gaps(got, want, family)
+        limits = {"out_ulps": float("inf"), "dres_unequal": 1e-6 * y.numel()}
+        if any(v > limits.get(k, 1e-5) for k, v in gaps.items()):
+            fail(f"[epilogue_train] {label}: the kernels part from their twin by {gaps}")
+        del want, got
+        n_bytes = BN_TRAIN_BYTES[case] * y.numel()
+        k = max(1, min(64, -(-L2_PAST_BYTES // n_bytes)))
+        iters = k * max(1, round(10 / k))
+        copies = itertools.cycle([y.clone() for _ in range(k)])
+
+        def passes():
+            yy = next(copies)
+            stats = T._stats_kernel(yy, bias, gamma, beta, None, 1e-5, 0.1, family, act)
+            out = T._apply_kernel(yy, res, bias, stats, family, act, post)
+            g, ld = T._pixel_rows(gout)
+            grads, gres = T._grad_sums_kernel(g, ld, yy, out, bias, stats, family, act, post)
+            if gres is not None:
+                g, ld = gres, c
+            T._grad_apply_kernel(g, ld, yy, bias, stats, grads, family, act)
+
+        bn = layers.BatchNorm2d(c).to(dev).train()
+        yb = (y.float() + (0 if bias is None else bias[:, None, None])).to(torch.bfloat16)
+        yb = yb.contiguous(memory_format=torch.channels_last)
+        e = {"label": label, "case": case, "shape": [nb, c, h, w], **gaps,
+             "mb": n_bytes / 1e6, "copies": k,
+             "ms": time_ms(lambda: card_tests.bn_train_run(T.bn_epilogue, case, next(copies),
+                                                           *ops[1:]), iters=iters),
+             "device_ms": device_ms(passes, iters=iters),
+             "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
+             "plain_ms": time_ms(lambda: card_tests.bn_train_run(T.bn_epilogue_plain, case,
+                                                                 *ops), iters=3),
+             "library_ms": time_ms(lambda: bn_train_chain(family, act, post, yb, res, gout,
+                                                                 bn), iters=5)}
+        e["share_of_bound"] = e["bound_ms"] / e["device_ms"]
+        print(f"[timing] bn_epilogue ({label}, {case}, {nb}x{c}x{h}x{w}): gaps from the twin "
+              f"{json.dumps(gaps)}; ms {e['ms']:.5g} (forward and backward, host-inclusive), "
+              f"device_ms {e['device_ms']:.5g} (its four passes, CUDA graph), bound "
+              f"{e['bound_ms']:.5g} (bytes: {n_bytes / 1e6:.4g} MB; {100 * e['share_of_bound']:.1f}"
+              f" %), plain {e['plain_ms']:.5g}, library {e['library_ms']:.5g} (PyTorch's chain, "
+              f"forward and backward), over {k} copies on {smi}")
+        rows.append(e)
+        del ops, y, gout, res, copies, yb
+        torch.cuda.empty_cache()
+    return rows
+
+
+def bn_train_launches() -> int:
+    """The train-mode epilogue's launches since `reset_launches`."""
+    from pmf_tpu_torch.ops import epilogue_train
+
+    torch.cuda.synchronize()
+    return epilogue_train.bn_epilogue.launches
 
 
 class AsppWatch:
@@ -770,6 +885,8 @@ def eval_path(dev, tag, name, model, opts, build, build_with_fill, cfg, batch, r
         epilogues = epilogue.conv_epilogue.launches
         report = inference.run()
     launches = read_launches()
+    if bn_train_launches():
+        fail(f"{tag} the train-mode epilogue ran {bn_train_launches()} times on the eval path")
     per_scan = launches["aspp_branches"] - per_call
     epilogues_scan = launches["conv_epilogue"] - epilogues
     if epilogues != epilogue_per_call or epilogues_scan != epilogue_per_call:
@@ -1031,11 +1148,12 @@ def full_width_train(dev, smi, timing: dict | None = None):
     over its train and validation runs (its ms/step to `timing`)."""
     opts, raw = pmf_train_setup()
     return train_path(dev, smi, "[train] (c)", "PMF-ResNet34", opts, raw, (TH, TW), (H, W),
-                      ("rasterize_zbuffer", "zbuffer_keys"), timing=timing)
+                      ("rasterize_zbuffer", "zbuffer_keys"), BN_TRAIN_STEP["PMFNet"],
+                      timing=timing)
 
 
 def train_path(dev, smi, tag, net, opts, raw, size_train, size_val, kernels_of_path,
-               model=None, keys=None, timing: dict | None = None):
+               bn_per_step: int, model=None, keys=None, timing: dict | None = None):
     """The Trainer of `opts` on the in-memory samples `raw` (read under
     `keys`, as `scan_reader` reads them; 2 train batches an epoch, 1
     validation batch): 2 warm-up and 8 timed steps, one
@@ -1044,9 +1162,10 @@ def train_path(dev, smi, tag, net, opts, raw, size_train, size_val, kernels_of_p
     It trains `model` (on `dev`), or the net of `opts` with random weights
     from a seed. Returns the kernels' launch counts over the train and
     validation runs; each of `kernels_of_path` must have been launched. The
-    ms/step goes to `timing["ms_step"]` when given."""
+    three split steps must launch the train-mode epilogue `bn_per_step`
+    times each. The ms/step goes to `timing["ms_step"]` when given."""
     from pmf_tpu_torch.models import build_model, random_weights
-    from pmf_tpu_torch.ops import rasterize, zbuffer
+    from pmf_tpu_torch.ops import epilogue_train, rasterize, zbuffer
     from pmf_tpu_torch.train import Trainer, pmf_losses, salsanext_losses
 
     bt, bv = opts.batch_size
@@ -1106,6 +1225,7 @@ def train_path(dev, smi, tag, net, opts, raw, size_train, size_val, kernels_of_p
     x = {k: torch.from_numpy(a).to(dev) for k, a in next(trainer.batches("Train", 0)).items()}
     g, opt = trainer.generator, trainer.optimizer
     splits = []
+    epilogue_train.bn_epilogue.launches = 0
     for _ in range(3):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
         ev[0].record()
@@ -1127,6 +1247,10 @@ def train_path(dev, smi, tag, net, opts, raw, size_train, size_val, kernels_of_p
         torch.cuda.synchronize()
         splits.append([ev[i].elapsed_time(ev[i + 1]) for i in range(5)])
     split = [statistics.median(c) for c in zip(*splits)]
+    if bn_train_launches() != 3 * bn_per_step:
+        fail(f"{tag} the train-mode epilogue ran {bn_train_launches()} times in 3 steps, not "
+             f"{3 * bn_per_step}")
+    print(f"{tag} train-mode epilogue: {bn_per_step} launches a step")
     names = ("view", "forward", "loss", "backward", "optimizer")
     profile_step(lambda: trainer._step(next(trainer.batches("Train", 0)), True), smi)
     lovasz = "point" if trainer.point_lovasz else "image-domain"
@@ -1278,7 +1402,7 @@ def epmf_train(dev, smi):
     """7(d): the EPMF Trainer at full width (`epmf_train_setup`)."""
     opts, raw = epmf_train_setup()
     return train_path(dev, smi, "[epmf] (d)", "EPMF-ResNet34", opts, raw, (HE, WE), (HE, WE),
-                      ("rasterize_zbuffer",))
+                      ("rasterize_zbuffer",), BN_TRAIN_STEP["EPMFNet"])
 
 
 def salsanext_opts():
@@ -1446,7 +1570,7 @@ def salsanext_train(dev, smi):
 
     raw = make_range_inputs(np.random.default_rng(5), 2 * RB, RN, RN - 10000)
     return train_path(dev, smi, "[salsanext] (d)", "SalsaNext", salsanext_opts(), raw,
-                      (RH, RW), (RH, RW), ("zbuffer_keys",))
+                      (RH, RW), (RH, RW), ("zbuffer_keys",), 0)
 
 
 def nusc_opts(net: str, **kw):
@@ -1829,7 +1953,7 @@ def nuscenes_phase(dev, smi):
     counts["launches_nusc_train"] = [train_path(
         dev, smi, "[nusc] (d)", "PMF-ResNet34 nuScenes",
         nusc_opts("PMFNet", n_epochs=5, warmup_epochs=1), frame, (NTH, NTW), (NH, NW),
-        ("rasterize_zbuffer", "zbuffer_keys"), model=pmf)]
+        ("rasterize_zbuffer", "zbuffer_keys"), BN_TRAIN_STEP["PMFNet"], model=pmf)]
     del pmf
     marks.append(("(d)", time.perf_counter()))
     epmf = nusc_model("EPMFNet", dev)
@@ -1888,12 +2012,13 @@ def a2d2_scans(raw):
 
 
 def reset_launches():
-    from pmf_tpu_torch.ops import aspp, epilogue, rasterize, zbuffer
+    from pmf_tpu_torch.ops import aspp, epilogue, epilogue_train, rasterize, zbuffer
 
     zbuffer.zbuffer_keys.launches = 0
     rasterize.rasterize_zbuffer.launches = 0
     aspp.aspp_branches.launches = 0
     epilogue.conv_epilogue.launches = 0
+    epilogue_train.bn_epilogue.launches = 0
 
 
 def read_launches() -> dict:
@@ -2107,7 +2232,8 @@ def a2d2_paths(dev, raw, smi):
     batched = a2d2_batched_eval(dev, model, raw, smi)
     eval_launches = {k: launches[k] + batched[k] for k in launches}
     train = train_path(dev, smi, "[a2d2] (c)", "EPMF-ResNet34 A2D2", opts, raw, (ATH, ATW),
-                       (AEH, AEW), ("rasterize_zbuffer",), model=model, keys=PIX_KEYS)
+                       (AEH, AEW), ("rasterize_zbuffer",), BN_TRAIN_STEP["EPMFNet"],
+                       model=model, keys=PIX_KEYS)
     if train["zbuffer_keys"] != 0:
         fail(f"[a2d2] (c) K1 was launched on the A2D2 train path (no point Lovász): {train}")
     return eval_launches, train
@@ -2188,7 +2314,7 @@ def sensat_paths(dev, smi):
     windows = [read(i) for i in range(2 * SBT)]
     raw = [np.stack([w[k] for w in windows]) for k in ("feature_map", "label_map")]
     train = train_path(dev, smi, "[sensat] (d)", "PMF-ResNet34 SensatUrban", opts, raw,
-                       (SS, SS), (2 * SS, 2 * SS), (), model=model,
+                       (SS, SS), (2 * SS, 2 * SS), (), 0, model=model,
                        keys=("feature_map", "label_map"))
     _, _, attempts = build_sensat_batch(*on([a[:SBT] for a in raw], dev),
                                         sensat_config(opts, True), True,
@@ -2399,6 +2525,7 @@ def nccl_world1(dev, smi) -> dict:
         reset_launches()
         ms_group = time_trainer(dev, opts, raw, model)
         launches = read_launches()
+        bn_group = bn_train_launches()
     finally:
         shutdown()
         for k in env:
@@ -2412,6 +2539,8 @@ def nccl_world1(dev, smi) -> dict:
              f"{noise:.3g})")
     if launches["rasterize_zbuffer"] == 0 or launches["zbuffer_keys"] == 0:
         fail(f"[nccl] (b) a kernel of the train path was not launched: {launches}")
+    if bn_group:
+        fail(f"[nccl] (b) the train-mode epilogue ran {bn_group} times with the group up")
     print(f"[nccl] (b) init_distributed: rank 0 of 1 on {backend}; the small step "
           f"(dryrun.train_step, {dryrun.ROWS}x{dryrun.TH}x{dryrun.TW}, 2 steps) in float64 with "
           f"the group: parameters as float32 within {err:.3g} ulp of the run without it (tol "
@@ -2927,6 +3056,7 @@ def main():
     entries = check_kernels(dev, cfg, batch, smi)
     aspp_rows = check_aspp(dev, smi)
     epilogue_rows = check_epilogue(dev, smi)
+    epilogue_train_rows = check_epilogue_train(dev, smi)
     AsppWatch.install()
     check_reference(dev)
     timing: dict = {}
@@ -3014,8 +3144,14 @@ def main():
                       "launches_epilogue": {"pmf_eval": launches["conv_epilogue"],
                                             "epmf_eval": launches_epmf["conv_epilogue"]},
                       "shapes": epilogue_rows}
+    epilogue_train_entry = {"name": "bn_epilogue", "route": "cuda",
+                            "source": "pmf_tpu_torch/csrc/conv_epilogue_train.cu",
+                            "replaces": None,
+                            "launches_train_step": {"pmf": BN_TRAIN_STEP["PMFNet"],
+                                                    "epmf": BN_TRAIN_STEP["EPMFNet"]},
+                            "shapes": epilogue_train_rows}
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]
-                      + [aspp_entry, epilogue_entry]}))
+                      + [aspp_entry, epilogue_entry, epilogue_train_entry]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

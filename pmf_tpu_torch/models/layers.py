@@ -18,8 +18,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..ops import epilogue
-from ..parallel import global_sum_count, rand_rows, spatial
+from ..ops import epilogue, epilogue_train
+from ..parallel import data_parallel, global_sum_count, rand_rows, spatial
 
 # True while `remat_stage` recomputes a stage in the backward pass: the
 # stage's BN layers took this batch's statistics into their running ones in
@@ -151,14 +151,39 @@ _ACTS = {None: lambda x: x, "relu": torch.relu, "leaky_relu": leaky_relu,
          "sigmoid": torch.sigmoid}
 
 
+def _kernels_take(x: torch.Tensor, residual) -> bool:
+    """Whether the epilogue kernels take a conv on x: x (and residual) CUDA
+    bf16 contiguous in channels_last, outside a row split."""
+    return (spatial.active() is None and epilogue.epilogue_takes(x)
+            and (residual is None or epilogue.epilogue_takes(residual)))
+
+
 def _fuses(x: torch.Tensor, residual, bn) -> bool:
     """Whether a conv on x runs without its bias and leaves the rest to one
     `epilogue.conv_epilogue` pass: in inference (grad off, BN in eval mode)
-    on CUDA bf16 x (and residual) contiguous in channels_last, outside a row
-    split."""
+    where `_kernels_take`."""
     return (not torch.is_grad_enabled() and (bn is None or not bn.training)
-            and spatial.active() is None and epilogue.epilogue_takes(x)
-            and (residual is None or epilogue.epilogue_takes(residual)))
+            and _kernels_take(x, residual))
+
+
+def _fuses_train(x: torch.Tensor, residual, bn, family: str, act, post) -> bool:
+    """Whether a train-mode conv on x runs without its bias and leaves the
+    batch-statistics BN, act, the residual and post to
+    `epilogue_train.bn_epilogue` (two passes forward, two backward): grad
+    on, BN in train mode, where `_kernels_take`, a variant and width the
+    kernels hold, and no process group (the BN sums would cross
+    processes)."""
+    return (torch.is_grad_enabled() and bn.training and not data_parallel()
+            and _kernels_take(x, residual)
+            and epilogue_train.takes(bn.num_features, family, act, residual is not None, post))
+
+
+def _bn_train_epilogue(y, bias, bn: BatchNorm2d, family: str, act, residual, post):
+    """`epilogue_train.bn_epilogue` with bn's parameters, moving its running
+    statistics unless a remat stage is being recomputed."""
+    running = None if _RECOMPUTING.get() else (bn.running_mean, bn.running_var)
+    return epilogue_train.bn_epilogue(y, bias, bn.weight, bn.bias, family, act, residual, post,
+                                      running, bn.eps, bn.momentum)
 
 
 def _chain(y, act, bn=None, residual=None, post=None):
@@ -174,8 +199,12 @@ def _chain(y, act, bn=None, residual=None, post=None):
 def _conv_then_epilogue(x, conv: Conv2d, w, bias, act, bn, residual, post):
     """post(BN(act(conv_w(x) + bias)) + residual) with `conv`'s geometry, its
     kernel w and the bias given. Where `_fuses` holds the conv runs without
-    its bias and one pass of `epilogue.conv_epilogue` does the rest; else
+    its bias and one pass of `epilogue.conv_epilogue` does the rest, where
+    `_fuses_train` holds `epilogue_train.bn_epilogue`'s passes; else
     PyTorch's ops, as the modules run them."""
+    if bn is not None and _fuses_train(x, residual, bn, "act_bn", act, post):
+        y = conv._conv_forward(x, w.to(x.dtype), None)
+        return _bn_train_epilogue(y, bias, bn, "act_bn", act, residual, post)
     if _fuses(x, residual, bn):
         y = conv._conv_forward(x, w.to(x.dtype), None)
         a, b = (None, None) if bn is None else bn.fold()
@@ -197,8 +226,13 @@ def conv_bn(x, conv: nn.Conv2d, bn: BatchNorm2d, act: str | None = None, residua
     """post(act(BN(conv(x))) + residual) (`conv_block`'s names), with the BN
     folded into the conv at eval: BN(conv_k(x) + c) == conv_{k·a}(x) +
     (c·a + b), then `_conv_then_epilogue`. In train mode the batch
-    statistics need the conv's output, so the chain runs unfolded."""
+    statistics need the conv's output, so BN runs unfolded after it: where
+    `_fuses_train` holds, the conv without its bias and
+    `epilogue_train.bn_epilogue`'s passes; else PyTorch's chain."""
     if bn.training:
+        if _fuses_train(x, residual, bn, "bn_act", act, post):
+            y = conv._conv_forward(x, conv.weight.to(x.dtype), None)
+            return _bn_train_epilogue(y, conv.bias, bn, "bn_act", act, residual, post)
         return _chain(bn(conv(x)), act, None, residual, post)
     a, b = bn.fold()
     bias = b if conv.bias is None else conv.bias * a + b

@@ -84,7 +84,8 @@ class ASPP(nn.Module):
         (training, float32, the CPU, the split) as four convs and a
         concatenation, the dilated ones on an NCHW copy of x where C is 512
         or more: given channels-last bf16 x of that width at a batch's map
-        size, cuDNN runs them on its direct kernel, 8-33x slower."""
+        size, cuDNN runs them on its direct kernel, 8-33x slower. The
+        concatenation keeps the branches' layout."""
         gp = self.conv(spatial.spatial_mean(x))
         branches = (self.atrous_block1, self.atrous_block6, self.atrous_block12,
                     self.atrous_block18)
@@ -96,8 +97,12 @@ class ASPP(nn.Module):
                           tuple(b.dilation[0] for b in branches[1:]), cat)
             return conv_block(cat.permute(0, 3, 1, 2), self.conv_1x1_output)
         xd = x.contiguous() if x.shape[1] >= 512 else x
-        cat = torch.cat([gp.expand(-1, -1, *x.shape[2:]), branches[0](x),
-                         *(b(xd) for b in branches[1:])], 1)
+        pooled = gp.expand(-1, -1, *x.shape[2:])
+        if xd.is_contiguous(memory_format=torch.channels_last):
+            # an expanded tensor counts as NCHW, which would send the
+            # concatenation and the decoder after it to NCHW
+            pooled = pooled.contiguous(memory_format=torch.channels_last)
+        cat = torch.cat([pooled, branches[0](x), *(b(xd) for b in branches[1:])], 1)
         return self.conv_1x1_output(cat)
 
 

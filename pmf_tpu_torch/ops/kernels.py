@@ -26,18 +26,26 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-SOURCES = ("zbuffer_keys.cu", "rasterize.cu", "aspp.cu", "conv_epilogue.cu")
+SOURCES = ("zbuffer_keys.cu", "rasterize.cu", "aspp.cu", "conv_epilogue.cu",
+           "conv_epilogue_train.cu")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
 _SIGNATURES = {
     "pmf_zbuffer_keys": [_P, _P, _P, _I, _I, _I, _I, _P],
     "pmf_rasterize_zbuffer": [_P, _P, _P, _P, _P, _P, _P, _P,
-                              _I, _I, _I, _I, _I, ctypes.c_float, _I, _P],
+                              _I, _I, _I, _I, _I, _F, _I, _P],
     "pmf_aspp_branches": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "pmf_conv_epilogue": [_P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _I, _P],
+    "pmf_conv_epilogue": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P],
+    "pmf_bn_train_stats": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _F, _F, _I, _I, _P],
+    "pmf_bn_train_apply": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P],
+    "pmf_bn_train_grad_sums": [_P, _L, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I,
+                               _P],
+    "pmf_bn_train_grad_apply": [_P, _L, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -31,12 +31,13 @@ def upsample_bilinear(x: torch.Tensor, scale: int = 2) -> torch.Tensor:
 
 def pixel_shuffle(x: torch.Tensor, r: int = 2) -> torch.Tensor:
     """[N, C*r*r, H, W] → [N, C, H*r, W*r], input channel c*r*r + i*r + j
-    going to row offset i and column offset j (torch's nn.PixelShuffle). In
-    inference a channels-last x gives a channels-last output (one copy, as
-    F.pixel_shuffle's), so that the convs after it keep that layout and
-    their epilogues (`layers.conv_block`) stay one pass."""
+    going to row offset i and column offset j (torch's nn.PixelShuffle). A
+    channels-last x gives a channels-last output (one copy, as
+    F.pixel_shuffle's, differentiable), so that the convs after it keep that
+    layout and their epilogues (`layers.conv_block`) stay on the kernels, in
+    inference and in training."""
     if spatial.active() is None:
-        if torch.is_grad_enabled() or not x.is_contiguous(memory_format=torch.channels_last):
+        if not x.is_contiguous(memory_format=torch.channels_last):
             return F.pixel_shuffle(x, r)
         n, c, h, w = x.shape
         shuffled = x.permute(0, 2, 3, 1).reshape(n, h, w, c // (r * r), r, r)

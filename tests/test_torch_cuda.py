@@ -722,3 +722,222 @@ def test_conv_epilogue_kernel_refuses_other_variants(cuda_device):
                                        kernels.sms(y.device))
     torch.cuda.synchronize()
     assert torch.equal(y, before)
+
+
+# (case, N, C, H, W): the train-mode epilogue at the train cell's largest
+# maps (batch 8, the 256x1024 crop): resBlock1's 64 channels and the context
+# blocks' 32 (with their residual) at full resolution, ResNet34's stem conv
+# (full resolution, before its pool), layer4's relu(BN + x) at 1/16, the
+# first fusion block's attention (both convs, at 1/2) and a downsample
+BN_TRAIN_SHAPES = {
+    "resblock1_64": ("act_bn", 8, 64, 256, 1024),
+    "context_32_residual": ("act_bn_residual", 8, 32, 256, 1024),
+    "r34_stem_relu": ("bn_relu", 8, 64, 256, 1024),
+    "r34_layer4_residual_relu": ("bn_residual_relu", 8, 512, 16, 64),
+    "fusion1_attention_relu": ("bn_relu_bias", 8, 64, 128, 512),
+    "fusion1_attention_sigmoid": ("bn_sigmoid_bias", 8, 64, 128, 512),
+    "r34_layer2_downsample": ("bn", 8, 128, 64, 256),
+}
+# case: (family, act, residual, post, conv bias), as tests/test_torch_epilogue_train.py
+BN_TRAIN_CASES = {
+    "act_bn": ("act_bn", "leaky_relu", False, None, True),
+    "act_bn_residual": ("act_bn", "leaky_relu", True, None, True),
+    "bn_relu": ("bn_act", "relu", False, None, False),
+    "bn_relu_bias": ("bn_act", "relu", False, None, True),
+    "bn_sigmoid_bias": ("bn_act", "sigmoid", False, None, True),
+    "bn": ("bn_act", None, False, None, False),
+    "bn_residual_relu": ("bn_act", None, True, "relu", False),
+}
+
+
+def bn_train_operands(dev, case, nb, c, h, w, seed):
+    """A conv output y and the output's gradient (bf16, channels-last; the
+    gradient as the middle channels of a wider tensor, as a concatenation's
+    backward gives it), the bias (or None), a residual (or None), BN's γ, β
+    and running statistics (float32), on `dev`."""
+    family, act, with_res, post, with_bias = BN_TRAIN_CASES[case]
+    g = torch.Generator().manual_seed(seed)
+    cl = torch.channels_last
+    bf = lambda *shape: (torch.randn(*shape, generator=g) * 2).to(dev, torch.bfloat16)
+    y = bf(nb, c, h, w).contiguous(memory_format=cl)
+    wide = bf(nb, c + 16, h, w).contiguous(memory_format=cl)
+    gout = wide[:, 8:8 + c]
+    res = bf(nb, c, h, w).contiguous(memory_format=cl) if with_res else None
+    f32 = lambda t: t.to(dev)
+    bias = f32(torch.randn(c, generator=g) * 0.5) if with_bias else None
+    gamma, beta = f32(torch.rand(c, generator=g) + 0.5), f32(torch.randn(c, generator=g) * 0.1)
+    running = (f32(torch.randn(c, generator=g) * 0.3), f32(torch.rand(c, generator=g) + 0.5))
+    return y, gout, bias, res, gamma, beta, running
+
+
+def bn_train_run(fn, case, y, gout, bias, res, gamma, beta, running):
+    """Forward and backward of `fn` (bn_epilogue or its twin) on copies of
+    the leaves and running statistics: {name: tensor}."""
+    family, act, _, post, _ = BN_TRAIN_CASES[case]
+    leaf = lambda t: None if t is None else t.clone().requires_grad_()
+    y, bias, res, gamma, beta = map(leaf, (y, bias, res, gamma, beta))
+    running = tuple(r.clone() for r in running)
+    out = fn(y, bias, gamma, beta, family, act, res, post, running)
+    out.backward(gout)
+    got = {"out": out.detach(), "dy": y.grad, "dgamma": gamma.grad, "dbeta": beta.grad,
+           "running_mean": running[0], "running_var": running[1]}
+    if bias is not None:
+        got["dbias"] = bias.grad
+    if res is not None:
+        got["dres"] = res.grad
+    return got
+
+
+def beyond_ulp(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest |got - want| beyond one bf16 ulp of each element of want,
+    over the largest |want|: 0 where every element is within its ulp."""
+    w = want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(2.0 ** -126))) - 7)
+    return (((got.float() - w).abs() - ulp).clamp_min(0).max() / w.abs().max()).item()
+
+
+def bn_train_gaps(got: dict, want: dict, family: str) -> dict:
+    """Each quantity's gap from the twin: the output and dy beyond one ulp
+    of each element, over their largest element (`beyond_ulp`; the ulps of
+    the output, for the record); the residual's gradient as the count of
+    unequal elements; the per-channel vectors over their largest element
+    (conv_bn's bias gradient, nought but rounding, over the largest Σ|dy|
+    of a channel)."""
+    gaps = {"out": beyond_ulp(got["out"], want["out"]),
+            "out_ulps": bf16_ulps(got["out"], want["out"]),
+            "dy": beyond_ulp(got["dy"], want["dy"])}
+    if "dres" in want:
+        gaps["dres_unequal"] = int((got["dres"] != want["dres"]).sum())
+    for k in ("dgamma", "dbeta", "dbias", "running_mean", "running_var"):
+        if k in want:
+            scale = want[k].abs().max()
+            if k == "dbias" and family == "bn_act":
+                scale = want["dy"].float().abs().sum(dim=(0, 2, 3)).max()
+            gaps[k] = ((got[k] - want[k]).abs().max() / scale).item()
+    return gaps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", BN_TRAIN_SHAPES.values(), ids=BN_TRAIN_SHAPES.keys())
+def test_bn_train_epilogue_kernels_match_twin(cuda_device, shape):
+    """The train-mode epilogue's kernels, forward and backward, against its
+    plain twin on the same card tensors, four launches. The output and dy
+    within one bf16 ulp of each element and 1e-5 of their largest: each
+    rounds once, but the sums behind BN's a and b and dy's coefficients run
+    in other orders, so these differ in their last float32 bits, which an
+    element where the terms cancel (t·a against b, or a residual) keeps
+    (measured: dy within its ulp everywhere; the output 1-512 ulps of a
+    near-nought element). The residual's gradient equal but at a closing
+    relu's sign flips (under 1e-6 of the elements; measured none); γ, β,
+    bias gradients and running statistics within 1e-5 of their largest
+    element (conv_bn's bias, 1e-5 of Σ|dy|): sums of up to two million
+    terms a channel in two orders (measured at most 1.6e-6)."""
+    from pmf_tpu_torch.ops import epilogue_train as T
+
+    case, nb, c, h, w = shape
+    ops = bn_train_operands(cuda_device, case, nb, c, h, w, c + h)
+    family = BN_TRAIN_CASES[case][0]
+    want = bn_train_run(T.bn_epilogue_plain, case, *ops)
+    launches = T.bn_epilogue.launches
+    got = bn_train_run(T.bn_epilogue, case, *ops)
+    torch.cuda.synchronize()
+    assert T.bn_epilogue.launches == launches + 4
+    assert got["out"].is_contiguous(memory_format=torch.channels_last)
+    assert got["dy"].is_contiguous(memory_format=torch.channels_last)
+    gaps = bn_train_gaps(got, want, family)
+    assert gaps["out"] <= 1e-5 and gaps["dy"] <= 1e-5, gaps
+    assert gaps.get("dres_unequal", 0) <= 1e-6 * got["out"].numel(), gaps
+    for k in ("dgamma", "dbeta", "dbias", "running_mean", "running_var"):
+        assert gaps.get(k, 0) <= 1e-5, gaps
+
+
+@pytest.mark.cuda
+def test_bn_train_epilogue_repeats(cuda_device):
+    """Two runs on the same operands give the same bits: the sums take no
+    float atomics."""
+    from pmf_tpu_torch.ops import epilogue_train as T
+
+    ops = bn_train_operands(cuda_device, "act_bn_residual", 8, 32, 64, 256, 1)
+    first = bn_train_run(T.bn_epilogue, "act_bn_residual", *ops)
+    second = bn_train_run(T.bn_epilogue, "act_bn_residual", *ops)
+    assert all(torch.equal(first[k], second[k]) for k in first)
+
+
+@pytest.mark.cuda
+def test_bn_train_epilogue_launches_per_train_step(cuda_device):
+    """One bf16 PMF-ResNet34 train step launches the train-mode epilogue
+    4 times for each of its 94 BNs (two passes forward, two backward: 376);
+    an eval forward of the same net none, and the conv epilogue of
+    inference once a conv there (105); a float32 train step none."""
+    from pmf_tpu_torch.models import PMFNet, random_weights
+    from pmf_tpu_torch.ops import epilogue
+    from pmf_tpu_torch.ops import epilogue_train as T
+
+    g = torch.Generator().manual_seed(0)
+    pcd = torch.randn(2, 64, 256, 5, generator=g).to(cuda_device)
+    img = torch.rand(2, 64, 256, 3, generator=g).to(cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    for dtype, want in ((torch.bfloat16, 376), (torch.float32, 0)):
+        model = random_weights(PMFNet(nclasses=20, base_channels=32, image_backbone="resnet34",
+                                      dtype=dtype), seed=1).to(cuda_device).train()
+        T.bn_epilogue.launches = 0
+        lidar, cam = model(pcd, img, gen)
+        assert T.bn_epilogue.launches == want // 2
+        (lidar.square().mean() + cam.square().mean()).backward()
+        torch.cuda.synchronize()
+        assert T.bn_epilogue.launches == want
+    T.bn_epilogue.launches = epilogue.conv_epilogue.launches = 0
+    model = random_weights(PMFNet(nclasses=20, base_channels=32, image_backbone="resnet34",
+                                  dtype=torch.bfloat16), seed=1).to(cuda_device).eval()
+    with torch.inference_mode():
+        model(pcd, img)
+    assert T.bn_epilogue.launches == 0 and epilogue.conv_epilogue.launches == 105
+
+
+@pytest.mark.cuda
+def test_bn_train_epilogue_waits_for_no_host(cuda_device):
+    """Forward and backward through the kernels under
+    torch.cuda.set_sync_debug_mode("error"): nothing reads back to the host."""
+    from pmf_tpu_torch.ops import epilogue_train as T
+
+    cases = ("act_bn_residual", "bn_residual_relu", "bn_sigmoid_bias")
+    ops = {case: bn_train_operands(cuda_device, case, 2, 64, 32, 64, 3) for case in cases}
+    bn_train_run(T.bn_epilogue, cases[0], *ops[cases[0]])   # loads the library first
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for case in cases:
+            bn_train_run(T.bn_epilogue, case, *ops[case])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_bn_train_epilogue_refuses(cuda_device):
+    """On the card the wrapper refuses a y that is not bf16 channels-last, a
+    width or variant the kernels do not hold and a residual not laid out as
+    y, and each C entry refuses a variant it was not built for, launching
+    nothing."""
+    from pmf_tpu_torch.ops import epilogue_train as T
+    from pmf_tpu_torch.ops import kernels
+
+    y, _, bias, _, gamma, beta, running = bn_train_operands(cuda_device, "act_bn", 2, 16, 4, 6, 0)
+    calls = [dict(y=y.float()), dict(y=y.contiguous()), dict(act="relu"),
+             dict(residual=y.contiguous()),
+             dict(y=y[:, :12].contiguous(memory_format=torch.channels_last), bias=bias[:12],
+                  weight=gamma[:12], beta=beta[:12], running=None)]
+    launches = T.bn_epilogue.launches
+    for kw in calls:
+        call = {"y": y, "bias": bias, "weight": gamma, "beta": beta, "family": "act_bn",
+                "act": "leaky_relu", "running": running, **kw}
+        with pytest.raises(ValueError):
+            T.bn_epilogue(**call)
+    assert T.bn_epilogue.launches == launches
+    stats = torch.zeros(4, 16, device=cuda_device)
+    out = torch.empty_like(y)
+    for family, act, post in ((0, 1, 0), (1, 2, 0), (1, 1, 1)):
+        with pytest.raises(RuntimeError):
+            kernels.launch("pmf_bn_train_apply", y.device, y.data_ptr(), None, bias.data_ptr(),
+                           stats.data_ptr(), out.data_ptr(), y.numel() // 16, 16, family, act,
+                           post, kernels.sms(y.device))

@@ -100,14 +100,21 @@ def test_conv_block_off_the_card_is_the_modules_chain():
 
 
 def test_pixel_shuffle_keeps_channels_last_in_inference():
-    """In inference a channels-last input gives a channels-last output with
-    F.pixel_shuffle's values; with grad on, F.pixel_shuffle's own layout."""
+    """A channels-last input gives a channels-last output with
+    F.pixel_shuffle's values, in inference and with grad on (so that the
+    train-mode epilogues after it take their kernels too), and the gradient
+    is F.pixel_shuffle's."""
     x = torch.randn(2, 16, 4, 6).contiguous(memory_format=torch.channels_last)
     with torch.no_grad():
         y = pixel_shuffle(x, 2)
     assert y.is_contiguous(memory_format=torch.channels_last)
     assert torch.equal(y, F.pixel_shuffle(x.contiguous(), 2))
-    assert torch.equal(pixel_shuffle(x, 2), y)
+    xg = x.clone().requires_grad_()
+    yg = pixel_shuffle(xg, 2)
+    assert yg.is_contiguous(memory_format=torch.channels_last) and torch.equal(yg, y)
+    gout = torch.randn(y.shape)
+    yg.backward(gout)
+    assert torch.equal(xg.grad, F.pixel_unshuffle(gout, 2))
 
 
 def card_gate(monkeypatch):
