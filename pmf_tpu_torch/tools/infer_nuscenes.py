@@ -79,8 +79,10 @@ class NuscenesInference:
     the device), pmf.view, pmf.model, .lift (amax, argmax and the gathers
     or the KNN vote), .readback (the `.cpu()` of class and confidence) and
     .merge (the numpy max-confidence merge), and once .finish
-    (`_finish_frame`). Its counters: `items` and `frames` done, and
-    `contested`, the points that more than one camera of a keyframe kept."""
+    (`_finish_frame`). Its counters: `items` and `frames` done;
+    `contested`, the points that more than one camera of a keyframe kept;
+    `kept_points`, the points that each item's view kept, summed over the
+    items; and `empty_items`, the items whose view kept none."""
 
     def __init__(self, opts: Options, model: torch.nn.Module, reader: Callable[[int], dict],
                  n_items: int, device: torch.device, tokens, use_knn: bool = False,
@@ -102,6 +104,7 @@ class NuscenesInference:
         self.point_eval = IOUEval(opts.nclasses, ignore=[0])
         self.covered = self.points = 0
         self.items = self.frames = self.contested = 0
+        self.kept_points = self.empty_items = 0
 
     @classmethod
     def from_files(cls, opts: Options, weights: str, device: torch.device,
@@ -152,9 +155,11 @@ class NuscenesInference:
     def run(self, max_frames: int = -1) -> dict:
         """Score the items' keyframes (the first `max_frames`, all with -1).
         Each keyframe is a span (`utils/spans.py`), pmf.keyframe, holding
-        its items' parts and its finish; the counters `items`, `frames` and
-        `contested` (points that more than one camera of a keyframe kept)
-        add up over the calls."""
+        its items' parts and its finish; the counters `items`, `frames`,
+        `contested` (points that more than one camera of a keyframe kept),
+        `kept_points` (points an item's view kept, summed over the items)
+        and `empty_items` (items whose view kept none) add up over the
+        calls."""
         n_items = self.n_items if max_frames <= 0 else min(self.n_items, max_frames * N_CAMERAS)
         n_frames = i = 0
         t0 = time.perf_counter()
@@ -169,6 +174,9 @@ class NuscenesInference:
                     pt_pred, pt_conf = self.item(last)
                     with span("pmf.keyframe.merge"):
                         kept = pt_conf >= 0
+                        n_kept = int(kept.sum())
+                        self.kept_points += n_kept
+                        self.empty_items += int(n_kept == 0)
                         if merged_conf is None:
                             merged_pred, merged_conf = pt_pred, pt_conf
                             seen, contested = kept, np.zeros_like(kept)
