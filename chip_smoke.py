@@ -114,13 +114,19 @@ Phases, each of which ends the run with a non-zero exit on failure:
      "cam" view, a small EPMFNet on the camera-frame V2 view with each
      camera's fovs, card vs CPU as phase 4, and one float32 PMF nuScenes
      train step as 6(b); (c) PMF-ResNet34 eval (bf16, 896x1600):
-     NuscenesInference.run over 2 keyframes with KNN, 12 K1 launches,
-     ms/keyframe and the merged coverage, then the batched validation view
-     at batch 4 (K2, scans/s) (`launches_nusc`), then PMF-ResNet50 (the
-     keyframe cell's net) on one item at 896x1600 (the conv epilogue's 122); (d) the PMF nuScenes
+     NuscenesInference.run over a warm-up keyframe and 2 more with KNN,
+     18 K1 launches, the ASPP kernel and the conv epilogue launched by the
+     first item's eager forward and the second's warm-up and capture of
+     the net's CUDA graphs (models/graphs.py), which the later items
+     replay, ms/keyframe and the merged coverage, then the batched
+     validation view at batch 4 (K2, scans/s) (`launches_nusc`), then
+     PMF-ResNet50 (the keyframe cell's net) on one item at 896x1600 (the
+     conv epilogue's 122 eagerly, 244 at the second call's warm-up and
+     capture, none in the replays after it); (d) the PMF nuScenes
      Trainer (batch 3, 640x960, point Lovász; `launches_nusc_train`); (e)
-     one keyframe through NuscenesInference's EPMF branch at 640x1280
-     (`launches_nusc_epmf`), one EPMF train step at batch 6, 320x1088, with
+     a warm-up keyframe and one more through NuscenesInference's EPMF
+     branch at 640x1280, counted as (c) (`launches_nusc_epmf`), one EPMF
+     train step at batch 6, 320x1088, with
      its peak memory, and one scan through SalsaNextInference's nuScenes
      branch at 32x2048 (`launches_nusc_salsanext`);
  10. A2D2 and SensatUrban (configs/experiments/epmf_a2d2.yaml and
@@ -135,8 +141,9 @@ Phases, each of which ends the run with a non-zero exit on failure:
      on the pixel-index V2 view and a small PMFNet on the BEV batch (eval,
      and a train crop of quarter turns) card vs CPU as phase 4, one float32
      EPMF A2D2 train step and one SensatUrban train step (Dice, AMSGrad) as
-     6(b); (c) EPMF-ResNet34 A2D2 (bf16): A2D2Inference.run over 4 scans (K1
-     4 launches), the batched validation view at batch 10 (K2, scans/s)
+     6(b); (c) EPMF-ResNet34 A2D2 (bf16): A2D2Inference.run over 4 scans after a
+     warm-up one (K1 4 launches; the first of the 4 captures the net's
+     CUDA graphs, all 4 replay them), the batched validation view at batch 10 (K2, scans/s)
      (`launches_a2d2`), the Trainer at batch 6, 320x960, multi-task loss
      (K2 only; `launches_a2d2_train`); (d) PMF-ResNet34 SensatUrban
      (float32, TF32 off): SensatInference.run at scales 320/448/576 with
@@ -1746,20 +1753,28 @@ def nuscenes_inference(dev, model, net: str, raw, smi, tag: str):
     n = len(raw[0])
     make = lambda k: NuscenesInference(opts, model, items_reader(raw), k, dev,
                                        [f"frame{i // 6}" for i in range(n)], use_knn=True)
+    captures, replays = graph_counts(model)
+    reset_launches()
     with torch.inference_mode():
         make(6).run()                                     # warm-up keyframe
     torch.cuda.synchronize()
-    reset_launches()
     report = make(n).run()
     launches = read_launches()
+    items = 6 + n
     per_item = 2 if net == "EPMFNet" else 1    # ASPPs a forward, one forward an item
-    if launches["zbuffer_keys"] != n or report["frames"] != n // 6 \
-            or launches["aspp_branches"] != per_item * n \
-            or launches["conv_epilogue"] != EPILOGUES[net] * n:
-        fail(f"{tag} NuscenesInference ran {report['frames']} keyframes with K1 launched "
-             f"{launches['zbuffer_keys']} times, the ASPP kernel "
-             f"{launches['aspp_branches']} times and the conv epilogue "
-             f"{launches['conv_epilogue']} times for {n} items")
+    # the net's kernels launch from Python in the first item's eager forward
+    # and in the second's warm-up and capture; every later item replays the
+    # net's CUDA graphs (models/graphs.py), the second included
+    if launches["zbuffer_keys"] != items or report["frames"] != n // 6 \
+            or launches["aspp_branches"] != 3 * per_item \
+            or launches["conv_epilogue"] != 3 * EPILOGUES[net] \
+            or graph_counts(model) != (captures + 1, replays + items - 1):
+        fail(f"{tag} NuscenesInference ran {report['frames']} keyframes after a warm-up one "
+             f"with K1 launched {launches['zbuffer_keys']} times, the ASPP kernel "
+             f"{launches['aspp_branches']} times, the conv epilogue "
+             f"{launches['conv_epilogue']} times and the net's graphs captured and replayed "
+             f"{tuple(a - b for a, b in zip(graph_counts(model), (captures, replays)))} times "
+             f"for {items} items")
     if not (np.isfinite(report["mIoU"]) and 0 < report["coverage"] < 1):
         fail(f"{tag} NuscenesInference report: {report}")
     hold_item_keys(make(6), raw, tag)
@@ -1836,17 +1851,26 @@ def nuscenes_r50_item(dev, raw, smi):
     with torch.inference_mode():
         f, _, _ = build_batch(*on([a[:1] for a in raw], dev), pv_config(opts))
         forward = lambda: model(f[..., :5], f[..., 5:8])
-        forward()                                          # warm-up
         reset_launches()
-        lidar, _ = forward()
+        lidar, _ = forward()                               # eager
         launches = read_launches()
-        ms = ms_per_call(forward)
+        captures, replays = graph_counts(model)
+        reset_launches()
+        forward()                        # warm-up and capture of the CUDA graphs, a replay
+        captured = read_launches()
+        ms = ms_per_call(forward)                          # replays
+        replayed = read_launches()
     n_classes = argmax_last(lidar).unique().numel()
     if launches["conv_epilogue"] != EPILOGUES["PMFNet-ResNet50"] \
             or launches["aspp_branches"] != 1 or lidar.shape != (1, NH, NW, 17) \
             or not torch.isfinite(lidar).all() or n_classes < 2:
         fail(f"[nusc] (c) PMF-ResNet50 on one item: probabilities {tuple(lidar.shape)}, finite "
              f"{bool(torch.isfinite(lidar).all())}, {n_classes} classes; launches {launches}")
+    if captured["conv_epilogue"] != 2 * EPILOGUES["PMFNet-ResNet50"] \
+            or captured["aspp_branches"] != 2 or replayed != captured \
+            or graph_counts(model)[0] != captures + 1:
+        fail(f"[nusc] (c) PMF-ResNet50's second call on one item launched {captured} (its "
+             f"warm-up and capture), the replays after it {replayed}")
     print(f"[nusc] (c) PMF-ResNet50 on one item at {NH}x{NW}, bf16: {n_classes} classes "
           f"predicted, {ms:.2f} ms a forward; launches {json.dumps(launches)} on {smi}")
     return launches
@@ -2019,6 +2043,12 @@ def reset_launches():
     aspp.aspp_branches.launches = 0
     epilogue.conv_epilogue.launches = 0
     epilogue_train.bn_epilogue.launches = 0
+
+
+def graph_counts(model) -> tuple[int, int]:
+    """The CUDA graphs' captures and replays of `model`'s class
+    (models/graphs.py)."""
+    return type(model).graph_captures, type(model).graph_replays
 
 
 def read_launches() -> dict:
@@ -2215,13 +2245,19 @@ def a2d2_paths(dev, raw, smi):
     model = random_weights(build_model(opts), seed=0).to(dev)
     scans = a2d2_scans(raw)
     A2D2Inference(opts, model, scans, 1, dev).run()                 # warm-up scan
+    captures, replays = graph_counts(model)
     reset_launches()
     report = A2D2Inference(opts, model, scans, 4, dev).run()
     launches = read_launches()
-    if launches != {"zbuffer_keys": 4, "rasterize_zbuffer": 0, "aspp_branches": 8,
-                    "conv_epilogue": 4 * EPILOGUES["EPMFNet"]} or \
+    # the first scan warms up and captures the net's CUDA graphs
+    # (models/graphs.py), each scan replays them
+    if launches != {"zbuffer_keys": 4, "rasterize_zbuffer": 0, "aspp_branches": 4,
+                    "conv_epilogue": 2 * EPILOGUES["EPMFNet"]} or \
+            graph_counts(model) != (captures + 1, replays + 4) or \
             not all(np.isfinite(v) for v in report.values()):
-        fail(f"[a2d2] (c) A2D2Inference over 4 scans: {report}, launches {launches}")
+        fail(f"[a2d2] (c) A2D2Inference over 4 scans: {report}, launches {launches}, the "
+             f"net's graphs captured and replayed "
+             f"{tuple(a - b for a, b in zip(graph_counts(model), (captures, replays)))} times")
     print(f"[a2d2] (c) A2D2Inference.run (EPMF, bf16, {AEH}x{AEW} window, {AN} points): "
           f"{report['ms_per_scan']:.2f} ms/scan over 4 scans (window, forward, labels; after one "
           f"warm-up scan); point mIoU {report['mIoU']:.4f}; launches {json.dumps(launches)} on "

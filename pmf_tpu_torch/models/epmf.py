@@ -28,6 +28,7 @@ from torch import nn
 from ..ops.resize import PixelShuffle
 from ..parallel import spatial
 from ..utils.spans import span
+from .graphs import GraphedNet
 from .layers import BatchNorm2d, Conv2d, conv_block, leaky_relu, remat_stage
 from .pmf import ASPP, ConvStage, LeakyReLU, ResidualBasedFusionBlock, RGBDecoder
 from .resnet import ResNetEncoder
@@ -188,7 +189,7 @@ class RGBDecoderV2(RGBDecoder):
         return super().forward([*inputs[:3], fuse], remat)
 
 
-class EPMFNet(nn.Module):
+class EPMFNet(GraphedNet):
     """Efficient PMF: forward(pcd [N, H, W, 5], img [N, H, W, 3]) →
     (lidar_probs, camera_probs), each [N, H, W, nclasses] float32; H and W
     must be multiples of 32 (the lidar stream runs at half resolution and
@@ -199,8 +200,12 @@ class EPMFNet(nn.Module):
     masks from `generator`, which forward then needs unless dropout_rate is
     0. With `remat` the stages of the three streams are recomputed in the
     backward pass instead of kept (PMFNet's). The forward is the span
-    pmf.model with one span a stream, as PMFNet's.
+    pmf.model with one span a stream, and replays CUDA graphs where
+    PMFNet's does (`models/graphs.py`).
     """
+
+    graph_captures = 0
+    graph_replays = 0
 
     def __init__(self, nclasses: int = 20, base_channels: int = 32,
                  image_backbone: str = "resnet34", dropout_rate: float = 0.2,
@@ -218,13 +223,16 @@ class EPMFNet(nn.Module):
     def forward(self, pcd_feature, img_feature, generator=None, remat: bool = False):
         if spatial.height(pcd_feature, 1) % 32 or pcd_feature.shape[2] % 32:
             raise ValueError(f"EPMFNet needs sizes divisible by 32: {tuple(pcd_feature.shape)}")
-        with span("pmf.model"):
-            pcd = pcd_feature.permute(0, 3, 1, 2).to(self.dtype)
-            img = img_feature.permute(0, 3, 1, 2).to(self.dtype)
-            with span("pmf.model.camera_encoder"):
-                img_feats = self.camera_stream_encoder(img, generator, remat)
-            with span("pmf.model.lidar_stream"):
-                lidar, lidar_feature = self.lidar_stream(pcd, img_feats, generator, remat)
-            with span("pmf.model.camera_decoder"):
-                camera = self.camera_stream_decoder(img_feats, lidar_feature, remat)
-            return lidar.permute(0, 2, 3, 1), camera.permute(0, 2, 3, 1)
+        return super().forward(pcd_feature, img_feature, generator, remat)
+
+    def streams(self, pcd_feature, img_feature, generator=None, remat: bool = False):
+        """PMFNet's three streams; the camera decoder also takes the lidar
+        bottleneck."""
+        pcd = pcd_feature.permute(0, 3, 1, 2).to(self.dtype)
+        img = img_feature.permute(0, 3, 1, 2).to(self.dtype)
+        img_feats = self.camera_stream_encoder(img, generator, remat)
+        yield
+        lidar, lidar_feature = self.lidar_stream(pcd, img_feats, generator, remat)
+        yield
+        camera = self.camera_stream_decoder(img_feats, lidar_feature, remat)
+        yield lidar.permute(0, 2, 3, 1), camera.permute(0, 2, 3, 1)

@@ -16,6 +16,7 @@ from ..ops.aspp import aspp_branches, aspp_takes
 from ..ops.resize import upsample_bilinear
 from ..parallel import spatial
 from ..utils.spans import span
+from .graphs import GraphedNet
 from .layers import BatchNorm2d, Conv2d, conv_block, conv_bn, leaky_relu, remat_stage
 from .resnet import ResNetEncoder
 from .salsanext import ResBlock, ResContextBlock, SalsaNext, UpBlock
@@ -196,7 +197,7 @@ class RGBDecoder(nn.Module):
         return torch.softmax(conv_block(up, self.conv).float(), dim=1)
 
 
-class PMFNet(nn.Module):
+class PMFNet(GraphedNet):
     """Two-stream fusion net: forward(pcd [N, H, W, 5], img [N, H, W, 3]) →
     (lidar_probs, camera_probs), each [N, H, W, nclasses] float32.
 
@@ -204,8 +205,13 @@ class PMFNet(nn.Module):
     statistics stay float32. In train mode the channel dropout draws its
     masks from `generator`, which forward then needs unless dropout_rate is
     0. With `remat` (pmf_tpu's train option) the stages of the three
-    streams are recomputed in the backward pass instead of kept.
+    streams are recomputed in the backward pass instead of kept. The
+    forward is the span pmf.model, holding one span a stream; at batch 1 in
+    inference on the card it replays CUDA graphs (`models/graphs.py`).
     """
+
+    graph_captures = 0
+    graph_replays = 0
 
     def __init__(self, nclasses: int = 20, base_channels: int = 32,
                  image_backbone: str = "resnet34", dropout_rate: float = 0.2,
@@ -219,19 +225,17 @@ class PMFNet(nn.Module):
         self.lidar_stream = SalsaNextFusion(chans, nclasses, base_channels,
                                             dropout_rate=dropout_rate)
 
-    def forward(self, pcd_feature, img_feature, generator=None, remat: bool = False):
-        """The forward is the span pmf.model, holding one span a stream:
-        pmf.model.camera_encoder, .lidar_stream, .camera_decoder."""
-        with span("pmf.model"):
-            pcd = pcd_feature.permute(0, 3, 1, 2).to(self.dtype)
-            img = img_feature.permute(0, 3, 1, 2).to(self.dtype)
-            with span("pmf.model.camera_encoder"):
-                img_feats = self.camera_stream_encoder(img, generator, remat)
-            with span("pmf.model.lidar_stream"):
-                lidar = self.lidar_stream(pcd, img_feats, generator, remat)
-            with span("pmf.model.camera_decoder"):
-                camera = self.camera_stream_decoder(img_feats, remat)
-            return lidar.permute(0, 2, 3, 1), camera.permute(0, 2, 3, 1)
+    def streams(self, pcd_feature, img_feature, generator=None, remat: bool = False):
+        """The camera encoder (after the inputs' permutes and casts), the
+        lidar stream and the camera decoder, a `yield` after each."""
+        pcd = pcd_feature.permute(0, 3, 1, 2).to(self.dtype)
+        img = img_feature.permute(0, 3, 1, 2).to(self.dtype)
+        img_feats = self.camera_stream_encoder(img, generator, remat)
+        yield
+        lidar = self.lidar_stream(pcd, img_feats, generator, remat)
+        yield
+        camera = self.camera_stream_decoder(img_feats, remat)
+        yield lidar.permute(0, 2, 3, 1), camera.permute(0, 2, 3, 1)
 
 
 def build_model(opts) -> nn.Module:

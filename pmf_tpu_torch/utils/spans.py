@@ -31,7 +31,10 @@ from autograd's). The tree:
     pmf.model                models/pmf.py, models/epmf.py: the fusion nets
       pmf.model.camera_encoder, pmf.model.lidar_stream (holding
       .context, .encoder, .fusion, .head, .decoder),
-      pmf.model.camera_decoder (EPMF's holding .lidar_upsample, .aspp)
+      pmf.model.camera_decoder (EPMF's holding .lidar_upsample, .aspp);
+      in a call that replays the nets' CUDA graphs (models/graphs.py)
+      pmf.model.graphed holds the three stream spans, each around its
+      graph's replay, and the spans nested in the streams do not occur
 """
 from __future__ import annotations
 

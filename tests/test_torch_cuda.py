@@ -941,3 +941,131 @@ def test_bn_train_epilogue_refuses(cuda_device):
             kernels.launch("pmf_bn_train_apply", y.device, y.data_ptr(), None, bias.data_ptr(),
                            stats.data_ptr(), out.data_ptr(), y.numel() // 16, 16, family, act,
                            post, kernels.sms(y.device))
+
+
+# (net, backbone, classes, H, W): the batch-1 eval forwards the per-scan and
+# per-item loops replay as CUDA graphs (models/graphs.py)
+GRAPH_NETS = {"pmf_r34_kitti": ("PMFNet", "resnet34", 20, 384, 1232),
+              "pmf_r50_nuscenes": ("PMFNet", "resnet50", 17, 896, 1600),
+              "epmf_r34_nuscenes": ("EPMFNet", "resnet34", 17, 640, 1280)}
+
+
+def graph_net(dev, name: str):
+    """A bf16 net of GRAPH_NETS at full width with random weights, and its
+    view's (H, W)."""
+    from pmf_tpu_torch import models
+
+    net, backbone, nclasses, h, w = GRAPH_NETS[name]
+    torch.manual_seed(0)
+    model = models.random_weights(getattr(models, net)(
+        nclasses=nclasses, base_channels=32, image_backbone=backbone, dtype=torch.bfloat16),
+        seed=1).to(dev)
+    return model, (h, w)
+
+
+def view_features(dev, size, seeds):
+    """One [H, W, 8] feature map a seed, as a per-scan view gives it."""
+    return [torch.randn(*size, 8, generator=torch.Generator().manual_seed(s)).to(dev)
+            for s in seeds]
+
+
+def call(model, f, generator=None):
+    """The net on one view's features, as the loops call it."""
+    return model(f[None, ..., :5], f[None, ..., 5:8], generator)
+
+
+def eager(model, f):
+    """The eager forward of an eval-mode net: a generator closes the
+    graphs' gate, and eval-mode dropout draws nothing from it."""
+    return call(model, f, torch.Generator())
+
+
+def graph_counts(model) -> tuple[int, int]:
+    return type(model).graph_captures, type(model).graph_replays
+
+
+def assert_same(got, want):
+    """Equal bit for bit and laid out alike; the float32 ulps apart if not."""
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.stride() == w.stride()
+        if not torch.equal(g, w):
+            ulps = ((g - w).abs() / torch.finfo(torch.float32).eps
+                    / w.abs().clamp_min(torch.finfo(torch.float32).tiny)).max().item()
+            raise AssertionError(f"replay differs from the eager call: {ulps:.1f} ulps at most")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", GRAPH_NETS)
+def test_graph_replay_equals_eager(cuda_device, name):
+    """Four calls at one signature: the first eager, the second captures
+    and replays, the rest replay; each output equals an eager call's on
+    the same features bit for bit, and no two calls' outputs share memory."""
+    model, size = graph_net(cuda_device, name)
+    fs = view_features(cuda_device, size, (1, 2, 3))
+    order = (fs[0], fs[1], fs[2], fs[0])
+    captures, replays = graph_counts(model)
+    with torch.inference_mode():
+        outs = [call(model, f) for f in order]
+        assert graph_counts(model) == (captures + 1, replays + 3)
+        for f, out in zip(order, outs):
+            assert_same(out, eager(model, f))
+    assert len({o.data_ptr() for out in outs for o in out}) == 2 * len(outs)
+
+
+@pytest.mark.cuda
+def test_graph_replays_keep_each_calls_output(cuda_device):
+    """A forward hook keeps each call's own lidar output: a later replay
+    writes into none of them."""
+    model, size = graph_net(cuda_device, "pmf_r34_kitti")
+    fs = view_features(cuda_device, size, (4, 5, 6))
+    kept = []
+    hook = model.register_forward_hook(lambda _m, _a, out: kept.append(out[0][0]))
+    with torch.inference_mode():
+        for f in fs + fs:
+            call(model, f)
+        hook.remove()
+        for f, k in zip(fs + fs, kept):
+            assert torch.equal(k, eager(model, f)[0][0])
+    assert len({k.data_ptr() for k in kept}) == len(kept)
+
+
+@pytest.mark.cuda
+def test_graphs_dropped_on_train_move_and_weight_load(cuda_device):
+    """`train()`, `to()` and a weight load drop the graphs: the next call at
+    the signature runs eagerly, the one after captures again, and after a
+    load every call gives the new weights' output."""
+    from pmf_tpu_torch.models import random_weights
+
+    model, size = graph_net(cuda_device, "pmf_r34_kitti")
+    f = view_features(cuda_device, size, (7,))[0]
+    with torch.inference_mode():
+        old = eager(model, f)
+        for drop in (lambda: model.train().eval(), lambda: model.to(cuda_device),
+                     lambda: random_weights(model, seed=2)):
+            call(model, f)
+            call(model, f)
+            drop()
+            captures, replays = graph_counts(model)
+            first = call(model, f)
+            assert graph_counts(model) == (captures, replays)
+            outs = [call(model, f), call(model, f)]
+            assert graph_counts(model) == (captures + 1, replays + 2)
+            for out in outs:
+                assert_same(out, first)
+        assert_same(first, eager(model, f))
+        assert not torch.equal(first[0], old[0])
+
+
+@pytest.mark.cuda
+def test_graphs_not_taken_at_batch_2_or_with_grad(cuda_device):
+    """Batch 2 in inference and batch 1 with grad on never capture nor
+    replay, nor record a signature."""
+    model, size = graph_net(cuda_device, "pmf_r34_kitti")
+    f = view_features(cuda_device, size, (8,))[0]
+    counts = graph_counts(model)
+    with torch.inference_mode():
+        for _ in range(3):
+            model(torch.stack([f, f])[..., :5], torch.stack([f, f])[..., 5:8])
+    for _ in range(3):
+        call(model, f)
+    assert graph_counts(model) == counts and not model._graphs
