@@ -22,6 +22,7 @@ import torch
 from ..ops.projection import spherical_project
 from ..ops.scatter import fill_canvas, zbuffer_scatter_packed
 from ..ops.zbuffer import zbuffer_keys
+from ..utils.spans import span
 from .augment import AugmentConfig, PointAugParams, augment_pointcloud
 from .perspective_pipeline import _constant
 
@@ -107,19 +108,22 @@ def build_range_batch(points, labels, valid, cfg: RangeConfig, train: bool = Fal
 def _build_range_batch(points, labels, valid, cfg: RangeConfig, train: bool = False,
                        generator=None, aug_override=None, keys=zbuffer_keys):
     """`build_range_batch` with the key scatter-min `keys` (the K1 wrapper,
-    or its plain version where the two are compared)."""
-    if train and cfg.pcd_aug:
-        points = augment_pointcloud(points, cfg.augment, generator, aug_override)
-    planes = range_project(points, labels, valid, cfg, keys)
-    feature = normalize_range_feature(planes["feature"], planes["mask"], cfg)
-    return feature, planes["label"], planes["mask"]
+    or its plain version where the two are compared). The whole view is the
+    span pmf.view (`utils/spans.py`)."""
+    with span("pmf.view"):
+        if train and cfg.pcd_aug:
+            points = augment_pointcloud(points, cfg.augment, generator, aug_override)
+        planes = range_project(points, labels, valid, cfg, keys)
+        feature = normalize_range_feature(planes["feature"], planes["mask"], cfg)
+        return feature, planes["label"], planes["mask"]
 
 
 def build_range_sample_with_uproj(points, labels, valid, cfg: RangeConfig):
     """One scan's eval view (points [N, 4]), keeping each point's place:
     (feature [H, W, 5] normalized, label, mask, proj_range, px, py, depth,
-    keep)."""
-    planes = range_project(points, labels, valid, cfg)
-    feature = normalize_range_feature(planes["feature"], planes["mask"], cfg)
-    return (feature, planes["label"], planes["mask"], planes["proj_range"], planes["px"],
-            planes["py"], planes["depth"], planes["keep"])
+    keep); the span pmf.view."""
+    with span("pmf.view"):
+        planes = range_project(points, labels, valid, cfg)
+        feature = normalize_range_feature(planes["feature"], planes["mask"], cfg)
+        return (feature, planes["label"], planes["mask"], planes["proj_range"], planes["px"],
+                planes["py"], planes["depth"], planes["keep"])

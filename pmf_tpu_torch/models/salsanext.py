@@ -13,6 +13,7 @@ import torch
 from torch import nn
 
 from ..ops.resize import pixel_shuffle
+from ..utils.spans import span
 from .layers import BatchNorm2d, Conv2d, Dropout2d, avg_pool_3x3_s2, conv_block
 
 
@@ -118,18 +119,26 @@ class SalsaNext(nn.Module):
         self.logits = Conv2d(bc, nclasses, 1)
 
     def forward(self, x, generator=None):
+        """The call is the span pmf.model holding pmf.model.lidar_stream
+        (`utils/spans.py`), and that holds PMF's lidar-stream parts: .context
+        (the three context blocks), .encoder (each of resBlock1-4), .head
+        (resBlock5) and .decoder (the upBlocks and the logits)."""
         g = generator
-        c = x.permute(0, 3, 1, 2).to(self.dtype)
-        c = self.downCntx3(self.downCntx2(self.downCntx(c)))
-        down0c, down0b = self.resBlock1(c, g)
-        down1c, down1b = self.resBlock2(down0c, g)
-        down2c, down2b = self.resBlock3(down1c, g)
-        down3c, down3b = self.resBlock4(down2c, g)
-        down5c = self.resBlock5(down3c, g)
-        up = self.upBlock1(down5c, down3b, g)
-        up = self.upBlock2(up, down2b, g)
-        up = self.upBlock3(up, down1b, g)
-        up = self.upBlock4(up, down0b, g)
-        logits = conv_block(up, self.logits).float()
-        out = torch.softmax(logits, dim=1) if self.softmax else logits
-        return out.permute(0, 2, 3, 1)
+        with span("pmf.model"), span("pmf.model.lidar_stream"):
+            c = x.permute(0, 3, 1, 2).to(self.dtype)
+            with span("pmf.model.lidar_stream.context"):
+                c = self.downCntx3(self.downCntx2(self.downCntx(c)))
+            skips = []
+            for block in (self.resBlock1, self.resBlock2, self.resBlock3, self.resBlock4):
+                with span("pmf.model.lidar_stream.encoder"):
+                    c, skip = block(c, g)
+                skips.append(skip)
+            with span("pmf.model.lidar_stream.head"):
+                up = self.resBlock5(c, g)
+            with span("pmf.model.lidar_stream.decoder"):
+                for block, skip in zip((self.upBlock1, self.upBlock2, self.upBlock3,
+                                        self.upBlock4), reversed(skips)):
+                    up = block(up, skip, g)
+                logits = conv_block(up, self.logits).float()
+                out = torch.softmax(logits, dim=1) if self.softmax else logits
+                return out.permute(0, 2, 3, 1)

@@ -170,20 +170,28 @@ def make_salsanext_train_step(model, optimizer, cfg: LossConfig):
     """step(feature [B, H, W, 5], label [B, H, W], generator=None) → aux:
     forward in train mode (dropout from `generator`), `salsanext_losses`,
     backward, one optimizer update; aux holds the detached loss terms and
-    the [C, C] confusion matrix."""
+    the [C, C] confusion matrix. The step and its parts are the spans of
+    `make_pmf_train_step`'s step: pmf.step holding pmf.step.forward, .loss,
+    .backward (holding .allreduce), .optimizer and .confusion."""
 
     def step(feature, label, generator=None):
-        model.train()
-        optimizer.zero_grad()
-        pred = model(feature, generator)
-        total, aux = salsanext_losses(pred, label, cfg)
-        total.backward()
-        average_gradients(model.parameters())
-        optimizer.step()
-        with torch.no_grad():
-            aux = {k: v.detach() for k, v in aux.items()}
-            aux["conf"] = global_confusion(pred, label, cfg.nclasses)
-            return aux
+        with span("pmf.step"):
+            with span("pmf.step.forward"):
+                model.train()
+                optimizer.zero_grad()
+                pred = model(feature, generator)
+            with span("pmf.step.loss"):
+                total, aux = salsanext_losses(pred, label, cfg)
+            with span("pmf.step.backward"):
+                total.backward()
+                with span("pmf.step.allreduce"):
+                    average_gradients(model.parameters())
+            with span("pmf.step.optimizer"):
+                optimizer.step()
+            with span("pmf.step.confusion"), torch.no_grad():
+                aux = {k: v.detach() for k, v in aux.items()}
+                aux["conf"] = global_confusion(pred, label, cfg.nclasses)
+                return aux
 
     return step
 

@@ -13,7 +13,8 @@ the spans inside its interval on its thread; the kernels a span launched
 are those whose launch starts inside it, on any thread (backward launches
 from autograd's). The tree:
 
-    pmf.step                 train/steps.py: make_pmf_train_step's step
+    pmf.step                 train/steps.py: make_pmf_train_step's and
+                             make_salsanext_train_step's step
       pmf.step.forward, pmf.step.loss,
       pmf.step.backward (holding pmf.step.allreduce), pmf.step.optimizer,
       pmf.step.confusion
@@ -25,13 +26,16 @@ from autograd's). The tree:
       per item: pmf.keyframe.read, pmf.keyframe.h2d, pmf.view, pmf.model,
       pmf.keyframe.lift, pmf.keyframe.readback, pmf.keyframe.merge;
       once: pmf.keyframe.finish
-    pmf.view                 data/: the batched and per-scan views
+    pmf.view                 data/: the batched and per-scan views, the
+                             range view's (data/range_pipeline.py) too
       pmf.k2                 ops/rasterize.py: rasterize_zbuffer
       pmf.k1                 ops/zbuffer.py: zbuffer_keys
     pmf.model                models/pmf.py, models/epmf.py: the fusion nets
       pmf.model.camera_encoder, pmf.model.lidar_stream (holding
       .context, .encoder, .fusion, .head, .decoder),
       pmf.model.camera_decoder (EPMF's holding .lidar_upsample, .aspp);
+      models/salsanext.py: SalsaNext.forward, pmf.model.lidar_stream alone
+      (holding .context, .encoder a resBlock, .head, .decoder; no .fusion);
       in a call that replays the nets' CUDA graphs (models/graphs.py)
       pmf.model.graphed holds the three stream spans, each around its
       graph's replay, and the spans nested in the streams do not occur
